@@ -1,0 +1,327 @@
+"""Multi-modal DiT (MMDiT) backbone with the Region-Instruction KV cache.
+
+Counterpart of `regione_tpu/models/mmdit.py` for the Step1X-Edit / FLUX
+topology: double-stream blocks, then single-stream (txt-concat) blocks,
+AdaLN-zero modulation, qk-RMSNorm and 3-axis RoPE.  Three cache modes:
+
+  mode="dense" : plain attention, no cache traffic;
+  mode="write" : dense attention AND store the image-stream K/V in the cache
+                 (filled in place: the port updates the cache tensors rather
+                 than returning new ones, which keeps one copy on the card);
+  mode="rags"  : the hidden stream holds the gathered edited tokens; they
+                 attend over [fresh rows ‖ frozen cache] with the stale cache
+                 rows of edited ids masked by the bias (kernel K2).  RAGS
+                 writes nothing to the cache.
+
+The cache stores attention-ready K (qk-norm and RoPE applied) and raw V,
+head-major [L, B, H, S, dh] over the image rows ([noise ‖ condition]) only.
+The depth runs as a Python loop over `nn.ModuleList`s; linear1 of the single
+blocks is one matmul (the JAX package's deferred-MLP split was an XLA
+rematerialisation fix with the same math).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from regione_tpu_torch.models.connector import Connector, ConnectorConfig
+from regione_tpu_torch.models.layers import (
+    MLP,
+    Scale,
+    apply_rope,
+    concat_rope,
+    layernorm,
+    make_linear,
+    mlp_embed,
+    mlp_embed_module,
+    rmsnorm,
+    sdpa,
+    sdpa_cached,
+    split_heads,
+    timestep_embedding,
+)
+
+MODE_DENSE = "dense"
+MODE_WRITE = "write"
+MODE_RAGS = "rags"
+
+# additive bias of a masked key column (pad slots, stale cache rows)
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class MMDiTConfig:
+    in_channels: int = 64
+    out_channels: int = 64
+    hidden: int = 3072
+    heads: int = 24
+    head_dim: int = 128
+    mlp_ratio: float = 4.0
+    depth_double: int = 19
+    depth_single: int = 38
+    txt_in_dim: int = 4096
+    pooled_dim: int = 768          # 0 -> no pooled-vector embed
+    axes_dims: tuple = (16, 56, 56)
+    rope_theta: float = 10000.0
+    time_embed_dim: int = 256
+    connector: ConnectorConfig | None = None   # Step1X text refiner
+    dtype: Any = torch.bfloat16
+
+    @property
+    def inner(self) -> int:
+        return self.heads * self.head_dim
+
+    @property
+    def mlp_hidden(self) -> int:
+        return int(self.hidden * self.mlp_ratio)
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _modulation(lin: nn.Linear, temb_act, n: int):
+    return lin(temb_act)[:, None, :].chunk(n, dim=-1)
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+class Attention(nn.Module):
+    """One stream's q/k/v/out projections and qk-RMSNorm scales."""
+
+    def __init__(self, d_model: int, cfg: MMDiTConfig, device):
+        super().__init__()
+        dt, inner = cfg.dtype, cfg.inner
+        self.heads = cfg.heads
+        self.q = make_linear(d_model, inner, device, dt)
+        self.k = make_linear(d_model, inner, device, dt)
+        self.v = make_linear(d_model, inner, device, dt)
+        self.out = make_linear(inner, d_model, device, dt)
+        self.norm_q = Scale(cfg.head_dim, device, dt)
+        self.norm_k = Scale(cfg.head_dim, device, dt)
+
+    def qkv(self, x, rope):
+        """q, k, v heads [B, H, S, dh] with qk-RMSNorm and RoPE applied."""
+        q = rmsnorm(split_heads(self.q(x), self.heads), self.norm_q.scale)
+        k = rmsnorm(split_heads(self.k(x), self.heads), self.norm_k.scale)
+        v = split_heads(self.v(x), self.heads)
+        return apply_rope(q, rope), apply_rope(k, rope), v
+
+
+class DoubleBlock(nn.Module):
+    """Double-stream block: separate img/txt projections, joint attention
+    with the txt rows first."""
+
+    def __init__(self, cfg: MMDiTConfig, device):
+        super().__init__()
+        h, dt = cfg.hidden, cfg.dtype
+        self.img_mod = make_linear(h, 6 * h, device, dt)
+        self.txt_mod = make_linear(h, 6 * h, device, dt)
+        self.img_attn = Attention(h, cfg, device)
+        self.txt_attn = Attention(h, cfg, device)
+        self.img_mlp = MLP(h, cfg.mlp_hidden, h, device, dt)
+        self.txt_mlp = MLP(h, cfg.mlp_hidden, h, device, dt)
+
+    def forward(self, img, txt, temb_act, rope_img, rope_txt, mode,
+                cache_k=None, cache_v=None, bias=None):
+        """Returns (img, txt, (k_img, v_img) in write mode else None)."""
+        (i_shift1, i_scale1, i_gate1,
+         i_shift2, i_scale2, i_gate2) = _modulation(self.img_mod, temb_act, 6)
+        (t_shift1, t_scale1, t_gate1,
+         t_shift2, t_scale2, t_gate2) = _modulation(self.txt_mod, temb_act, 6)
+
+        img_n = layernorm(img) * (1 + i_scale1) + i_shift1
+        txt_n = layernorm(txt) * (1 + t_scale1) + t_shift1
+        q_i, k_i, v_i = self.img_attn.qkv(img_n, rope_img)
+        q_t, k_t, v_t = self.txt_attn.qkv(txt_n, rope_txt)
+        q = torch.cat([q_t, q_i], dim=2)
+        k = torch.cat([k_t, k_i], dim=2)
+        v = torch.cat([v_t, v_i], dim=2)
+
+        new_kv = None
+        if mode == MODE_RAGS:
+            attn = sdpa_cached(q, (k, v), cache_k, cache_v, bias=bias)
+        else:
+            if mode == MODE_WRITE:
+                new_kv = (k_i, v_i)
+            attn = sdpa(q, k, v, bias=bias)
+
+        t_len = txt.shape[1]
+        attn_txt, attn_img = attn[:, :t_len], attn[:, t_len:]
+        img = img + i_gate1 * self.img_attn.out(attn_img)
+        txt = txt + t_gate1 * self.txt_attn.out(attn_txt)
+
+        img_n2 = layernorm(img) * (1 + i_scale2) + i_shift2
+        img = img + i_gate2 * self.img_mlp.out(_gelu(self.img_mlp.in_(img_n2)))
+        txt_n2 = layernorm(txt) * (1 + t_scale2) + t_shift2
+        txt = txt + t_gate2 * self.txt_mlp.out(_gelu(self.txt_mlp.in_(txt_n2)))
+        return img, txt, new_kv
+
+
+class SingleBlock(nn.Module):
+    """Flux-style single-stream block over [txt ‖ img]: one fused qkv+MLP
+    projection, parallel attention and MLP, one output projection."""
+
+    def __init__(self, cfg: MMDiTConfig, device):
+        super().__init__()
+        h, dt = cfg.hidden, cfg.dtype
+        self.heads, self.inner, self.mlp_hidden = (cfg.heads, cfg.inner,
+                                                   cfg.mlp_hidden)
+        self.mod = make_linear(h, 3 * h, device, dt)
+        self.linear1 = make_linear(h, 3 * cfg.inner + cfg.mlp_hidden,
+                                   device, dt)
+        self.linear2 = make_linear(cfg.inner + cfg.mlp_hidden, h, device, dt)
+        self.norm_q = Scale(cfg.head_dim, device, dt)
+        self.norm_k = Scale(cfg.head_dim, device, dt)
+
+    def forward(self, x, temb_act, rope, mode, cache_k=None, cache_v=None,
+                bias=None, t_txt: int = 0):
+        """Returns (x, (k_img, v_img) in write mode else None); the image
+        rows of the stream start at `t_txt`."""
+        shift, scale, gate = _modulation(self.mod, temb_act, 3)
+        x_n = layernorm(x) * (1 + scale) + shift
+        inner = self.inner
+        q, k, v, mlp_h = self.linear1(x_n).split(
+            [inner, inner, inner, self.mlp_hidden], dim=-1)
+        q = apply_rope(rmsnorm(split_heads(q, self.heads), self.norm_q.scale),
+                       rope)
+        k = apply_rope(rmsnorm(split_heads(k, self.heads), self.norm_k.scale),
+                       rope)
+        v = split_heads(v, self.heads)
+
+        new_kv = None
+        if mode == MODE_RAGS:
+            attn = sdpa_cached(q, (k, v), cache_k, cache_v, bias=bias)
+        else:
+            if mode == MODE_WRITE:
+                new_kv = (k[:, :, t_txt:], v[:, :, t_txt:])
+            attn = sdpa(q, k, v, bias=bias)
+        out = self.linear2(torch.cat([attn, _gelu(mlp_h)], dim=-1))
+        return x + gate * out, new_kv
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: MMDiTConfig, batch: int, s_kv_img: int, device):
+    """Zeroed KV cache: {"dk", "dv", "sk", "sv"} of [L, B, H, S, dh] in the
+    model dtype, image rows only (txt rows re-embed every step)."""
+    shape = (batch, cfg.heads, s_kv_img, cfg.head_dim)
+    depths = {"dk": cfg.depth_double, "dv": cfg.depth_double}
+    if cfg.depth_single:
+        depths.update(sk=cfg.depth_single, sv=cfg.depth_single)
+    return {key: torch.zeros((depth, *shape), dtype=cfg.dtype, device=device)
+            for key, depth in depths.items()}
+
+
+def rags_bias(sel_img_ids, s_kv: int, t_txt: int, batch: int, txt_bias):
+    """[B, 1, 1, t_txt + cap + s_kv] key bias of a RAGS step: keys are
+    [txt ‖ edited (fresh) ‖ cached image rows].  Pad slots (id == s_kv) and
+    the stale cache rows at edited ids are -1e30; the stale-row scatter drops
+    the sentinel through a sink column at index s_kv."""
+    cap, device = sel_img_ids.shape[0], sel_img_ids.device
+    if txt_bias is not None:
+        base_txt = txt_bias[:, 0, 0, :t_txt].float()
+        base_img = txt_bias[:, 0, 0, t_txt:].float()
+    else:
+        base_txt = torch.zeros((batch, t_txt), device=device)
+        base_img = torch.zeros((batch, s_kv), device=device)
+    fresh = torch.where(sel_img_ids < s_kv, 0.0, NEG_INF).float()
+    fresh = fresh[None].expand(batch, cap)
+    stale = torch.zeros((batch, s_kv + 1), device=device)
+    stale[:, torch.clamp(sel_img_ids, max=s_kv).long()] = NEG_INF
+    return torch.cat([base_txt, fresh, base_img + stale[:, :s_kv]],
+                     dim=-1)[:, None, None, :]
+
+
+class MMDiT(nn.Module):
+    """The backbone; parameter names mirror the JAX param pytree (the
+    block stacks "double" / "single" become `double_blocks.<i>` /
+    `single_blocks.<i>`, since `nn.Module.double` is a method; JAX's "w" is
+    `weight` transposed, "b" is `bias`, "in" is `in_`)."""
+
+    def __init__(self, cfg: MMDiTConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        h, dt = cfg.hidden, cfg.dtype
+        self.x_embedder = make_linear(cfg.in_channels, h, device, dt)
+        self.time_in = mlp_embed_module(cfg.time_embed_dim, h, device, dt)
+        self.txt_in = make_linear(cfg.txt_in_dim, h, device, dt)
+        self.final_mod = make_linear(h, 2 * h, device, dt)
+        self.final_proj = make_linear(h, cfg.out_channels, device, dt)
+        self.double_blocks = nn.ModuleList(DoubleBlock(cfg, device)
+                                    for _ in range(cfg.depth_double))
+        if cfg.pooled_dim:
+            self.vector_in = mlp_embed_module(cfg.pooled_dim, h, device, dt)
+        if cfg.connector is not None:
+            self.connector = Connector(cfg.connector, device)
+        if cfg.depth_single:
+            self.single_blocks = nn.ModuleList(SingleBlock(cfg, device)
+                                        for _ in range(cfg.depth_single))
+
+    def forward(self, img, txt, t, rope_img, rope_txt, pooled=None, *,
+                mode: str = MODE_DENSE, cache=None, sel_img_ids=None,
+                txt_bias=None):
+        """img [B, T_img, C]; txt [B, T_txt, txt_in_dim]; t [B] sigma in
+        the model dtype; rope_* (cos, sin) over the img / txt rows.
+        In rags mode T_img == cap and `sel_img_ids` [cap] maps rows into the
+        cache (sentinel s_kv for pad slots).  Returns (v [B, T_img, C_out],
+        cache); write mode fills `cache` in place (zeroed if None)."""
+        cfg, dt = self.cfg, self.cfg.dtype
+        if mode == MODE_WRITE and cache is None:
+            cache = init_cache(cfg, img.shape[0], img.shape[1], img.device)
+        x = self.x_embedder(img.to(dt))
+        temb = mlp_embed(self.time_in,
+                         timestep_embedding(t, cfg.time_embed_dim).to(dt))
+        if cfg.pooled_dim and pooled is not None and cfg.connector is None:
+            temb = temb + mlp_embed(self.vector_in, pooled.to(dt))
+        txt_in = txt.to(dt)
+        if cfg.connector is not None:
+            txt_mask = None
+            if txt_bias is not None:
+                txt_mask = txt_bias[:, 0, 0, :txt.shape[1]] > -1.0
+            txt_in, y = self.connector(txt_in, t, txt_mask)
+            if cfg.pooled_dim:
+                temb = temb + mlp_embed(self.vector_in, y.to(dt))
+        temb_act = F.silu(temb)
+        txt_h = self.txt_in(txt_in)
+        t_txt = txt_h.shape[1]
+
+        bias = txt_bias
+        if mode == MODE_RAGS:
+            bias = rags_bias(sel_img_ids, cache["dk"].shape[3], t_txt,
+                             x.shape[0], txt_bias)
+
+        for i, blk in enumerate(self.double_blocks):
+            ck = cache["dk"][i] if mode == MODE_RAGS else None
+            cv = cache["dv"][i] if mode == MODE_RAGS else None
+            x, txt_h, kv = blk(x, txt_h, temb_act, rope_img, rope_txt, mode,
+                               ck, cv, bias)
+            if kv is not None:
+                cache["dk"][i].copy_(kv[0])
+                cache["dv"][i].copy_(kv[1])
+
+        if cfg.depth_single:
+            stream = torch.cat([txt_h, x], dim=1)
+            rope_stream = concat_rope(rope_txt, rope_img)
+            for i, blk in enumerate(self.single_blocks):
+                ck = cache["sk"][i] if mode == MODE_RAGS else None
+                cv = cache["sv"][i] if mode == MODE_RAGS else None
+                stream, kv = blk(stream, temb_act, rope_stream, mode, ck, cv,
+                                 bias, t_txt=t_txt)
+                if kv is not None:
+                    cache["sk"][i].copy_(kv[0])
+                    cache["sv"][i].copy_(kv[1])
+            x = stream[:, t_txt:]
+
+        shift, scale = _modulation(self.final_mod, temb_act, 2)
+        x = layernorm(x) * (1 + scale) + shift
+        return self.final_proj(x), cache

@@ -1,0 +1,116 @@
+"""Parameters for the port: from a `regione_tpu` param pytree, or drawn anew.
+
+`mmdit_from_jax(params, cfg, device)` turns the JAX package's param pytree
+(numpy or jax leaves, or `jax.ShapeDtypeStruct`s for a shape-only check on
+the meta device) into the port's `MMDiT`:
+  * a linear's "w" [in, out] becomes `weight` [out, in] (transposed), "b"
+    becomes `bias`;
+  * block params stacked on a leading layer axis ("double", "single",
+    "connector.blocks") are unstacked into the `ModuleList` entries
+    (`double_blocks`, `single_blocks`, `connector.blocks`);
+  * the key "in" becomes `in_`.
+Every leaf is consumed exactly once: the converted names must be exactly the
+module's parameters (a strict load), and `convert_params` reports each
+consumed leaf path.
+
+`init_params(cfg, generator, device)` draws the distributions of the JAX
+package's `init_mmdit` / `init_connector` (uniform +-1/sqrt(d_in) weights,
+zero biases, norm scales 1, connector `scale_factor` -0.91) with a torch
+generator: the same distributions, not the same bits.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from regione_tpu_torch.models.layers import AffineNorm, Scale
+from regione_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
+
+# pytree subtrees whose leaves carry a leading layer axis -> ModuleList name
+STACKED = {"double": "double_blocks", "single": "single_blocks",
+           "connector.blocks": "connector.blocks"}
+
+
+def _to_torch(leaf, device):
+    """numpy / jax array -> torch tensor on `device`; a shape-only leaf
+    (no data, e.g. jax.ShapeDtypeStruct) -> an fp32 meta tensor."""
+    if not hasattr(leaf, "__array__"):
+        return torch.empty(tuple(leaf.shape), device="meta")
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    return t.to(device)
+
+
+def _torch_name(path: list[str]) -> str:
+    out = []
+    for key in path:
+        out.append({"w": "weight", "b": "bias", "in": "in_"}.get(key, key))
+    return ".".join(out)
+
+
+def _walk(tree, prefix=()):
+    for key, val in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(val, dict):
+            yield from _walk(val, path)
+        else:
+            yield path, val
+
+
+def convert_params(params, device="cpu"):
+    """JAX param pytree -> ({torch param name: tensor}, consumed leaf paths
+    in pytree order)."""
+    state, consumed = {}, []
+    for path, leaf in _walk(params):
+        t = _to_torch(leaf, device)
+        if path[-1] == "w":
+            t = t.transpose(-1, -2)
+        dotted = ".".join(path)
+        stack = next((s for s in STACKED if dotted.startswith(s + ".")), None)
+        if stack is None:
+            names = {_torch_name(list(path)): t}
+        else:
+            rest = list(path[len(stack.split(".")):])
+            names = {f"{STACKED[stack]}.{i}." + _torch_name(rest): t[i]
+                     for i in range(t.shape[0])}
+        for name, val in names.items():
+            if name in state:
+                raise ValueError(f"{name} produced twice")
+            state[name] = val
+        consumed.append(dotted)
+    return state, consumed
+
+
+def mmdit_from_jax(params, cfg: MMDiTConfig, device="cpu") -> MMDiT:
+    """The port's backbone holding a JAX param pytree's values."""
+    model = MMDiT(cfg, device)
+    state, _ = convert_params(params, device)
+    model.load_state_dict(
+        {k: v.to(cfg.dtype) for k, v in state.items()}, strict=True)
+    return model.eval()
+
+
+@torch.no_grad()
+def init_params(cfg: MMDiTConfig, generator: torch.Generator,
+                device="cpu") -> MMDiT:
+    """A backbone with random weights drawn on `device` from `generator`."""
+    model = MMDiT(cfg, device)
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            lim = 1.0 / math.sqrt(mod.in_features)
+            mod.weight.uniform_(-lim, lim, generator=generator)
+            mod.bias.zero_()
+        elif isinstance(mod, (Scale, AffineNorm)):
+            mod.scale.fill_(1.0)
+            if isinstance(mod, AffineNorm):
+                mod.bias.zero_()
+    if cfg.connector is not None:
+        model.connector.scale_factor.fill_(-0.91)
+    return model.eval()
