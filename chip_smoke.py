@@ -5,17 +5,25 @@
 Phases, each printing its lines and seconds; any failure exits non-zero:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
   2. build the hand-written kernels from regione_tpu_torch/csrc with nvcc;
-  3. each kernel against its plain PyTorch version at the slice's shapes,
-     with its error bound, and both times (CUDA events);
-  4. a small head_dim-128 model: the card's path against the port's CPU
-     path on the same weights and inputs;
-  5. the slice: Step1X-Edit at full published width and depth with random
-     bf16 weights, a dense 28-step edit and the RegionE edit of two
+  3. each kernel against its plain PyTorch version at the slices' shapes,
+     with its error bound, and both times (CUDA events): K1, K2, K3, K2q
+     (int8 and int4 cache), K5 (K1 past 12,288 keys) and K6;
+  4. small head_dim-128 models: the card's path against the port's CPU
+     path on the same weights and inputs: Step1X topology (bf16 cache),
+     Qwen topology with the int8 and the int4 cache, Qwen-Image-Edit-Plus
+     with two 64 x 64 references (dense S past 12,288: K5), and
+     `sdpa_cached` over a quantized cache alone (K6);
+  5. the Step1X-Edit slice at full published width and depth with random
+     bf16 weights: a dense 28-step edit and the RegionE edit of two
      requests through `Step1XEditPipeline.edit_latents`, with the kernels'
      launch counts, the plan statistics, the timings and the latent PSNR of
-     RegionE against dense;
-  6. device time of one dense and one RegionE edit by kernel group
-     (torch.profiler), and the device's idle share.
+     RegionE against dense; then its device time by kernel group
+     (torch.profiler) and the device's idle share;
+  5b. the Qwen-Image-Edit slice at full published width and depth (60
+     double blocks, 20.4 B parameters, random bf16 weights): two requests
+     with the int8 cache, then the second with the int8, int4 and bf16
+     caches in turns, twice, the same weights throughout; then its profile.
+Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is the kernels' JSON record, the last line the
 device record.  Imports no JAX: the port and the numpy-only
 `regione_tpu.core.{config,schedule,gamma}` modules only.
@@ -23,6 +31,8 @@ device record.  Imports no JAX: the port and the numpy-only
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -31,6 +41,7 @@ import time
 import numpy as np
 
 T0 = time.perf_counter()
+DEVICE = "cuda"
 
 
 def log(msg: str) -> None:
@@ -120,12 +131,48 @@ def _heads_view(rng, b, h, t, d, device):
     return x.view(b, t, h, d).transpose(1, 2)
 
 
-def check_attention(rng, b, h, t, s, with_bias, iters):
-    """K1 at [b, h, t, d] over s keys; the plain version runs in head chunks
-    (its fp32 logits at s = 8320 would be ~13 GB in one piece)."""
+def _held(label, got, want, ms, pms):
+    """Error of the kernel's bf16 output against the plain version, within
+    ATTN_REL_BOUND of the output's scale; logs and returns the record."""
+    import torch
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    max_abs = float(err.max())
+    ok = bool(torch.isfinite(got).all()) and max_abs <= ATTN_REL_BOUND * scale
+    log(f"{label}: max_abs {max_abs:.3e} max_rel {max_abs / scale:.3e} "
+        f"(bound {ATTN_REL_BOUND:.0e} x {scale:.3e}) "
+        f"kernel {ms:.3f} ms plain {pms:.3f} ms {'ok' if ok else 'FAIL'}")
+    return ok, max_abs, ms, pms
+
+
+def _head_chunks(h, b, t, s):
+    """Heads per piece of a plain version whose fp32 logits [b, ., t, s]
+    stay under ~2 GB (at s = 8320 in one piece they would be ~13 GB)."""
+    return max(1, min(h, int(2e9 // (4 * b * t * s))))
+
+
+def _chunked(fn, h, chunk, *heads_args):
+    """fn over head slices of its [B, H, ., D] arguments, joined on the
+    [B, T, H*D] output's last dim."""
+    import torch
+
+    def run():
+        outs = []
+        for h0 in range(0, h, chunk):
+            sl = slice(h0, h0 + chunk)
+            outs.append(fn(*(a[:, sl] if a is not None and a.dim() >= 3
+                             else a for a in heads_args)))
+        return torch.cat(outs, dim=-1)
+    return run
+
+
+def check_attention(rng, b, h, t, s, with_bias, iters, kid="K1"):
+    """K1 (K5 past 12,288 keys) at [b, h, t, d] over s keys; the plain
+    version runs in head chunks."""
     import torch
     from regione_tpu_torch.ops import flash_attention as fa
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     d = 128
     q = _heads_view(rng, b, h, t, d, dev)
     k = _heads_view(rng, b, h, s, d, dev)
@@ -136,38 +183,36 @@ def check_attention(rng, b, h, t, s, with_bias, iters):
         bn[:, 100:128] = -1e9                 # padded text columns
         bn[:, rng.random(s) < 0.05] = -1e30   # masked rows
         bias = torch.from_numpy(bn).to(dev)
-    chunk = max(1, min(h, int(2e9 // (4 * b * t * s))))
-
-    def plain():
-        outs = []
-        for h0 in range(0, h, chunk):
-            sl = slice(h0, h0 + chunk)
-            outs.append(fa.attention_reference(q[:, sl], k[:, sl], v[:, sl],
-                                               bias))
-        return torch.cat(outs, dim=-1)
-
+    plain = _chunked(lambda q_, k_, v_: fa.attention_reference(q_, k_, v_,
+                                                               bias),
+                     h, _head_chunks(h, b, t, s), q, k, v)
     got = fa.attention(q, k, v, bias)
     want = plain()
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs()
-    scale = float(want.float().abs().max())
-    max_abs = float(err.max())
-    ok = bool(torch.isfinite(got).all()) and max_abs <= ATTN_REL_BOUND * scale
     ms = cuda_ms(lambda: fa.attention(q, k, v, bias), iters)
     pms = cuda_ms(plain, max(1, iters // 2))
-    log(f"K1 attention [{b},{h},{t},{d}] x S={s} bias={with_bias}: "
-        f"max_abs {max_abs:.3e} max_rel {max_abs / scale:.3e} "
-        f"(bound {ATTN_REL_BOUND:.0e} x {scale:.3e}) "
-        f"kernel {ms:.3f} ms plain {pms:.3f} ms {'ok' if ok else 'FAIL'}")
-    return ok, max_abs, ms, pms
+    return _held(f"{kid} attention [{b},{h},{t},{d}] x S={s} "
+                 f"bias={with_bias}", got, want, ms, pms)
 
 
-def check_rows2(rng, b, h, t_txt, cap, s_cache, iters):
-    """K2: q over [fresh txt+cap rows ‖ cache] with a RAGS-style bias (pad
-    slots and stale cache rows at -1e30)."""
+def _rags_bias(rng, b, t1, cap, s_cache):
+    """A RAGS-style bias: pad slots and stale cache rows at -1e30."""
+    import torch
+    bn = np.zeros((b, t1 + s_cache), np.float32)
+    n_pad = cap // 8
+    bn[:, t1 - n_pad:t1] = -1e30                         # pad slots
+    stale = rng.choice(s_cache // 2, cap - n_pad, replace=False)
+    bn[:, t1 + stale] = -1e30                            # stale cache rows
+    return torch.from_numpy(bn).to(DEVICE)
+
+
+def check_rows2(rng, b, h, t_txt, cap, s_cache, iters, bits=16):
+    """K2 (bits 16: bf16 cache) or K2q (bits 8 / 4: the cache quantized by
+    `ops.quant` on the card): q over [fresh txt+cap rows ‖ cache] with a
+    RAGS-style bias."""
     import torch
     from regione_tpu_torch.ops import flash_attention as fa
-    dev = torch.device("cuda")
+    from regione_tpu_torch.ops import quant
+    dev = torch.device(DEVICE)
     d = 128
     t1 = t_txt + cap
     q = _heads_view(rng, b, h, t1, d, dev)
@@ -175,30 +220,59 @@ def check_rows2(rng, b, h, t_txt, cap, s_cache, iters):
     v1 = _heads_view(rng, b, h, t1, d, dev).contiguous()
     kc = _heads_view(rng, b, h, s_cache, d, dev).contiguous()
     vc = _heads_view(rng, b, h, s_cache, d, dev).contiguous()
-    bn = np.zeros((b, t1 + s_cache), np.float32)
-    n_pad = cap // 8
-    bn[:, t1 - n_pad:t1] = -1e30                         # pad slots
-    stale = rng.choice(s_cache // 2, cap - n_pad, replace=False)
-    bn[:, t1 + stale] = -1e30                            # stale cache rows
-    bias = torch.from_numpy(bn).to(dev)
+    bias = _rags_bias(rng, b, t1, cap, s_cache)
+    if bits == 16:
+        def kernel():
+            return fa.attention_rows2(q, k1, v1, kc, vc, bias)
 
-    def plain():
-        return fa.attention_rows2_reference(q, k1, v1, kc, vc, bias)
+        def plain():
+            return fa.attention_rows2_reference(q, k1, v1, kc, vc, bias)
+        label = "K2 rows2"
+    else:
+        qz = quant.quantize_kv_heads if bits == 8 else \
+            quant.quantize_kv_heads4
+        (kq, ks), (vq, vs) = qz(kc), qz(vc)
+        del kc, vc
 
-    got = fa.attention_rows2(q, k1, v1, kc, vc, bias)
+        def kernel():
+            return fa.attention_rows2(q, k1, v1, kq, vq, bias, k_scale=ks,
+                                      v_scale=vs)
+
+        def plain():
+            return fa.attention_rows2_quant_reference(q, k1, v1, kq, vq, ks,
+                                                      vs, bias)
+        label = f"K2q rows2 int{bits}"
+    got = kernel()
     want = plain()
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs()
-    scale = float(want.float().abs().max())
-    max_abs = float(err.max())
-    ok = bool(torch.isfinite(got).all()) and max_abs <= ATTN_REL_BOUND * scale
-    ms = cuda_ms(lambda: fa.attention_rows2(q, k1, v1, kc, vc, bias), iters)
+    ms = cuda_ms(kernel, iters)
     pms = cuda_ms(plain, iters)
-    log(f"K2 rows2 [{b},{h},{t1},{d}] x ({t1} fresh + {s_cache} cache): "
-        f"max_abs {max_abs:.3e} max_rel {max_abs / scale:.3e} "
-        f"(bound {ATTN_REL_BOUND:.0e} x {scale:.3e}) "
-        f"kernel {ms:.3f} ms plain {pms:.3f} ms {'ok' if ok else 'FAIL'}")
-    return ok, max_abs, ms, pms
+    return _held(f"{label} [{b},{h},{t1},{d}] x ({t1} fresh + {s_cache} "
+                 "cache)", got, want, ms, pms)
+
+
+def check_attention_quant(rng, b, h, t, s, bits, iters):
+    """K6: q over an int8 / int4 K/V alone (quantized on the card), no
+    bias; the plain version (dequantize, then K1's) runs in head chunks."""
+    import torch
+    from regione_tpu_torch.ops import flash_attention as fa
+    from regione_tpu_torch.ops import quant
+    dev = torch.device(DEVICE)
+    d = 128
+    q = _heads_view(rng, b, h, t, d, dev)
+    qz = quant.quantize_kv_heads if bits == 8 else quant.quantize_kv_heads4
+    kq, ks = qz(_heads_view(rng, b, h, s, d, dev))
+    vq, vs = qz(_heads_view(rng, b, h, s, d, dev))
+    plain = _chunked(fa.attention_quant_reference, h,
+                     _head_chunks(h, b, t, s), q, kq, vq, ks, vs)
+
+    def kernel():
+        return fa.attention(q, kq, vq, k_scale=ks, v_scale=vs)
+    got = kernel()
+    want = plain()
+    ms = cuda_ms(kernel, iters)
+    pms = cuda_ms(plain, max(1, iters // 2))
+    return _held(f"K6 attention int{bits} [{b},{h},{t},{d}] x S={s}", got,
+                 want, ms, pms)
 
 
 def check_partition(rng, grid, d, iters):
@@ -208,7 +282,7 @@ def check_partition(rng, grid, d, iters):
     decisions must equal the kernel exactly."""
     import torch
     from regione_tpu_torch.ops import partition_kernel as pk
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     s = grid * grid
     thr = 0.88
     x0 = rng.standard_normal((s, d)).astype(np.float32)
@@ -248,10 +322,11 @@ def check_partition(rng, grid, d, iters):
 
 
 def phase_kernels(grid):
-    """Each kernel at the slice's shapes; returns the record of each kernel
-    at the shape the main path gives it (grid `grid`, t_txt 128)."""
+    """Each kernel at the slices' shapes; returns the record of each kernel
+    at the shape its path gives it (grid `grid`, t_txt 128)."""
     rng = np.random.default_rng(0)
     s_main = 128 + 2 * grid * grid
+    cap = grid * grid // 4
     results, ok = {}, True
     for t, bias in ((s_main, False), (s_main, True), (8320, False),
                     (8320, True)):
@@ -261,12 +336,24 @@ def phase_kernels(grid):
             results["attention"] = r
     r = check_attention(rng, 2, 28, 128, 128, False, iters=20)  # connector
     ok &= r[0]
-    for t_txt, cap, s_cache in ((128, 1024, 8192),
-                                (128, grid * grid // 4, 2 * grid * grid)):
-        r = check_rows2(rng, 2, 24, t_txt, cap, s_cache, iters=10)
+    # K5: 128 txt + 3 x 4096 rows (Plus, two 64 x 64 references)
+    r = check_attention(rng, 2, 24, 128 + 3 * 4096, 128 + 3 * 4096, False,
+                        iters=3, kid="K5")
+    ok &= r[0]
+    results["attention_long"] = r
+    for bits in (16, 8, 4):
+        for t_txt, c, s_cache in ((128, 1024, 8192),
+                                  (128, cap, 2 * grid * grid)):
+            r = check_rows2(rng, 2, 24, t_txt, c, s_cache, iters=10,
+                            bits=bits)
+            ok &= r[0]
+            if s_cache == 2 * grid * grid:
+                results[{16: "attention_rows2", 8: "rows2_int8",
+                         4: "rows2_int4"}[bits]] = r
+    for bits in (8, 4):
+        r = check_attention_quant(rng, 2, 24, s_main, s_main, bits, iters=5)
         ok &= r[0]
-        if s_cache == 2 * grid * grid:
-            results["attention_rows2"] = r
+        results[f"attention_quant_int{bits}"] = r
     for g in (64, 32):
         r = check_partition(rng, g, 64, iters=20)
         ok &= r[0]
@@ -299,8 +386,7 @@ def psnr(a, b) -> float:
 def reset_counts():
     from regione_tpu_torch.ops import flash_attention as fa
     from regione_tpu_torch.ops import partition_kernel as pk
-    fa.attention.launches = 0
-    fa.attention_rows2.launches = 0
+    fa.reset_launches()
     pk.fused_partition.launches = 0
 
 
@@ -308,8 +394,18 @@ def read_counts():
     from regione_tpu_torch.ops import flash_attention as fa
     from regione_tpu_torch.ops import partition_kernel as pk
     return {"attention": fa.attention.launches,
+            "attention_long": fa.attention.long_launches,
             "attention_rows2": fa.attention_rows2.launches,
+            "attention_rows2_quant": fa.attention_rows2_quant.launches,
+            "attention_quant": fa.attention_quant.launches,
             "fused_partition": pk.fused_partition.launches}
+
+
+def release():
+    """Free what the last phase left on the card."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _ctx(txt, pooled, cond, rope):
@@ -320,59 +416,240 @@ def _ctx(txt, pooled, cond, rope):
         rope_txt=rope[1], pooled=pooled)
 
 
-def phase_small_reference():
-    """The card's path (kernels, bf16) against the port's CPU path (plain
-    versions, fp32, held against the JAX package by the CPU tests) on a
-    small Step1X-topology model with head_dim 128 and a forced partition:
-    equal stats, latent PSNR >= 30 dB."""
-    import dataclasses
-
+def card_vs_cpu(label, cfg, pipe_cls, re, grid, t_txt, forced,
+                cond_grids=None):
+    """One forced-mask edit of a small model on the CPU in fp32 (the plain
+    versions, held against the JAX package by the CPU tests) and on the
+    card in bf16 (the kernels), same weights and inputs: equal stats,
+    latent PSNR >= 30 dB.  Returns the card run's launch counts."""
     import torch
-    from regione_tpu.core.config import RegionEParams
-    from regione_tpu_torch.models.connector import ConnectorConfig
-    from regione_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
-    from regione_tpu_torch.pipelines.step1x_edit import Step1XEditPipeline
+    from regione_tpu_torch.models.mmdit import MMDiT
     from regione_tpu_torch.weights.from_jax import init_params
-    conn = ConnectorConfig(in_dim=64, hidden=256, heads=2, depth=1,
-                           pooled_dim=32, time_embed_dim=64,
-                           dtype=torch.float32)
-    cfg = MMDiTConfig(hidden=256, heads=2, head_dim=128, depth_double=2,
-                      depth_single=2, txt_in_dim=256, pooled_dim=32,
-                      time_embed_dim=64, mlp_ratio=2.0, in_channels=16,
-                      out_channels=16, dtype=torch.float32, connector=conn)
-    card_cfg = dataclasses.replace(
-        cfg, dtype=torch.bfloat16,
-        connector=dataclasses.replace(conn, dtype=torch.bfloat16))
-    grid, t_txt = 8, 16
+    card_cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    if cfg.connector is not None:
+        card_cfg = dataclasses.replace(card_cfg, connector=dataclasses.replace(
+            cfg.connector, dtype=torch.bfloat16))
     ref_model = init_params(cfg, torch.Generator().manual_seed(1))
-    card_model = MMDiT(card_cfg, torch.device("cuda")).eval()
+    card_model = MMDiT(card_cfg, torch.device(DEVICE)).eval()
     card_model.load_state_dict(ref_model.state_dict())
-    re = RegionEParams(capacity_granularity=16)
+    s = grid * grid
+    s_cond = sum(h * w for h, w in cond_grids) if cond_grids else s
+    txt_dim = cfg.connector.in_dim if cfg.connector else cfg.txt_in_dim
     rng = np.random.default_rng(5)
-    txt = rng.standard_normal((2, t_txt, 64)).astype(np.float32)
-    cond = 0.5 * rng.standard_normal((1, grid * grid, 16)).astype(np.float32)
-    lat0 = rng.standard_normal((1, grid * grid, 16)).astype(np.float32)
-    forced = np.zeros((grid, grid), bool)
-    forced[1:5, 2:7] = True
+    txt = rng.standard_normal((2, t_txt, txt_dim)).astype(np.float32)
+    cond = 0.5 * rng.standard_normal((1, s_cond, cfg.in_channels)).astype(
+        np.float32)
+    lat0 = rng.standard_normal((1, s, cfg.in_channels)).astype(np.float32)
     outs = []
     for model in (ref_model, card_model):
-        pipe = Step1XEditPipeline(model, re)
+        pipe = pipe_cls(model, re)
         dev = pipe.device
         ctx = _ctx(torch.from_numpy(txt).to(dev, model.cfg.dtype), None, cond,
-                   pipe.build_rope(grid, grid, t_txt))
+                   pipe.build_rope(grid, grid, t_txt, cond_grids))
+        reset_counts()
         out, stats = pipe.edit_latents(
             torch.from_numpy(lat0).to(dev), ctx, grid, grid,
             forced_mask=torch.from_numpy(forced.reshape(-1)).to(dev))
-        outs.append((out.float().cpu().numpy(), stats))
-    (ref, s_ref), (got, s_got) = outs
+        outs.append((out.float().cpu().numpy(), stats, read_counts()))
+    (ref, s_ref, _), (got, s_got, counts) = outs
     p = psnr(ref, got)
     ok = s_ref == s_got and bool(np.isfinite(got).all()) and p >= PSNR_MIN
-    log(f"small reference (head_dim 128, grid {grid}, forced mask): "
-        f"card bf16 vs CPU fp32 latent PSNR {p:.2f} dB (min {PSNR_MIN}), "
-        f"stats {'equal' if s_ref == s_got else f'{s_ref} vs {s_got}'} "
-        f"{'ok' if ok else 'FAIL'}")
+    log(f"small reference, {label} (head_dim 128, grid {grid}, S_kv "
+        f"{s + s_cond}, forced mask): card bf16 vs CPU fp32 latent PSNR "
+        f"{p:.2f} dB (min {PSNR_MIN}), stats "
+        f"{'equal' if s_ref == s_got else f'{s_ref} vs {s_got}'}, card "
+        f"launches {counts} {'ok' if ok else 'FAIL'}")
     if not ok:
-        fail("the card's path disagrees with the CPU reference")
+        fail(f"{label}: the card's path disagrees with the CPU reference")
+    return counts
+
+
+def phase_small_reference():
+    """Small head_dim-128 models, card against CPU (`card_vs_cpu`): the
+    Step1X topology (bf16 cache); the Qwen topology (joint double blocks,
+    txt_norm) with (a) the int8 and (b) the int4 cache; (c) Plus with two
+    64 x 64 references, whose dense steps attend over 16 + 3 x 4096 keys,
+    past the resident budget (K5).  Then `sdpa_cached` over a quantized
+    cache alone (K6).  Returns each path's card launch counts."""
+    import torch
+    from regione_tpu.core.config import RegionEParams
+    from regione_tpu_torch.models.connector import ConnectorConfig
+    from regione_tpu_torch.models.mmdit import MMDiTConfig
+    from regione_tpu_torch.ops.flash_attention import RESIDENT_KEYS
+    from regione_tpu_torch.pipelines.qwen_image_edit import (
+        QwenImageEditPipeline, QwenImageEditPlusPipeline)
+    from regione_tpu_torch.pipelines.step1x_edit import Step1XEditPipeline
+    conn = ConnectorConfig(in_dim=64, hidden=256, heads=2, depth=1,
+                           pooled_dim=32, time_embed_dim=64,
+                           dtype=torch.float32)
+    small = dict(hidden=256, heads=2, head_dim=128, depth_double=2,
+                 time_embed_dim=64, mlp_ratio=2.0, in_channels=16,
+                 out_channels=16, dtype=torch.float32)
+    forced = np.zeros((8, 8), bool)
+    forced[1:5, 2:7] = True
+    re = RegionEParams(capacity_granularity=16)
+    counts = {}
+    card_vs_cpu("step1x topology, bf16 cache",
+                MMDiTConfig(depth_single=2, txt_in_dim=256, pooled_dim=32,
+                            connector=conn, **small),
+                Step1XEditPipeline, re, 8, 16, forced)
+    qwen = MMDiTConfig(depth_single=0, txt_in_dim=64, pooled_dim=0,
+                       txt_norm=True, **small)
+    for bits in (8, 4):
+        cfg = dataclasses.replace(qwen, **{f"cache_int{bits}": True})
+        c = card_vs_cpu(f"qwen topology, int{bits} cache", cfg,
+                        QwenImageEditPipeline, re, 8, 16, forced)
+        if not (c["attention_rows2_quant"] > 0 and c["attention_rows2"] == 0
+                and c["attention"] > 0):
+            fail(f"qwen int{bits} small reference: launch counts {c}")
+    # (c) Plus: noise 64 x 64 and two 64 x 64 references: dense S = 16 +
+    # 12,288 keys; one attention head keeps the CPU reference short
+    forced = np.zeros((64, 64), bool)
+    forced[8:24, 10:30] = True
+    c = card_vs_cpu("qwen-image-edit-plus, two 64x64 references, int8 "
+                    "cache", dataclasses.replace(qwen, heads=1,
+                                                 cache_int8=True),
+                    QwenImageEditPlusPipeline,
+                    RegionEParams(capacity_granularity=64), 64, 16, forced,
+                    cond_grids=[(64, 64), (64, 64)])
+    if not (c["attention_long"] > 0 and c["attention_rows2_quant"] > 0):
+        fail(f"plus small reference: no launch past {RESIDENT_KEYS} keys "
+             f"({c})")
+    counts["plus"] = c
+    counts.update(check_sdpa_cached_alone())
+    return counts
+
+
+def check_sdpa_cached_alone():
+    """`layers.sdpa_cached(q, None, cache_k, cache_v)` over an int8 and an
+    int4 cache (the JAX package's `txt_kv=None` branch, kernel K6): card
+    bf16 against the CPU fp32 path on the same codes and scales, within
+    ATTN_REL_BOUND.  Returns the card calls' launch counts."""
+    import torch
+    from regione_tpu_torch.models.layers import sdpa_cached
+    from regione_tpu_torch.ops import quant
+    rng = np.random.default_rng(7)
+    b, h, t, s, d = 2, 2, 144, 144, 128
+    q = torch.from_numpy(rng.standard_normal((b, h, t, d), np.float32))
+    kv = [torch.from_numpy(rng.standard_normal((b, h, s, d), np.float32))
+          for _ in range(2)]
+    counts = {}
+    for bits in (8, 4):
+        qz = quant.quantize_kv_heads if bits == 8 else quant.quantize_kv_heads4
+        cache = [qz(x) for x in kv]
+        want = sdpa_cached(q, None, *cache)
+        card = [tuple(a.to(DEVICE) for a in c) for c in cache]
+        reset_counts()
+        got = sdpa_cached(q.to(DEVICE, torch.bfloat16), None, *card)
+        counts[f"quant_int{bits}"] = read_counts()
+        ok, err, _, _ = _held(f"sdpa_cached over an int{bits} cache alone "
+                              f"[{b},{h},{t},{d}] x S={s} (card vs CPU fp32)",
+                              got, want.to(got.device), float("nan"),
+                              float("nan"))
+        if not ok or counts[f"quant_int{bits}"]["attention_quant"] != 1:
+            fail(f"sdpa_cached int{bits}: {counts[f'quant_int{bits}']}")
+    return counts
+
+
+def structured_condition(pipe, sampler, re, grid, txt, pooled, rope, lat0,
+                         r, label):
+    """bench.py's probe: the x0 estimate at the partition step with a block
+    replaced by noise, so the adaptive partition is partial with random
+    weights (the block's 5x5 dilation covers ~25% of the grid).  Returns
+    the condition latent (numpy [1, S, C])."""
+    import torch
+    from regione_tpu_torch.core.partition import select_edited_mask
+    s, c_in = grid * grid, pipe.cfg.in_channels
+    warm = sampler.plan[: re.warmup_step - 1]
+    part = sampler.plan[re.warmup_step - 1]
+
+    @torch.inference_mode()
+    def x0_probe(ctx):
+        """x0 estimate at the partition step (the sampler's math)."""
+        ctx = dataclasses.replace(ctx, s_noise=s)
+        lat = sampler._dense_steps(lat0.float(), warm, ctx)
+        v, _ = pipe.dense_forward(lat, part.sigma, None, ctx, False)
+        return lat + part.dt_final * v
+
+    b0, b1 = grid // 16, grid * 7 // 16
+    block = np.zeros((grid, grid), bool)
+    block[b0:b1, b0:b1] = True
+    target = block.reshape(-1)
+    noise_block = r.standard_normal((int(target.sum()), c_in))
+    cond = r.standard_normal((1, s, c_in))
+    for it in range(3):
+        t = time.perf_counter()
+        x0 = x0_probe(_ctx(txt, pooled, cond, rope))
+        cond = x0.cpu().numpy().copy()
+        cond[0, target] = noise_block
+        mask = select_edited_mask(
+            x0, torch.as_tensor(cond, dtype=torch.float32, device=x0.device),
+            re.threshold, grid_h=grid, grid_w=grid,
+            erosion_dilation=re.erosion_dilation)
+        frac = float(mask.float().mean())
+        log(f"{label}: probe {it}: edited fraction {frac:.3f} "
+            f"({time.perf_counter() - t:.1f}s)")
+        if 0.18 <= frac <= 0.35 and it >= 1:
+            break
+    return cond
+
+
+def timed_edit(pipe, lat0, ctx, grid, dense_only=False):
+    """One edit, host wall time ended by a synchronize, launch counts set to
+    0 just before and read just after, peak device memory of the edit.
+    Returns (latents numpy, stats, seconds, counts, peak GiB)."""
+    import torch
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out, stats = pipe.edit_latents(lat0, ctx, grid, grid,
+                                   dense_only=dense_only)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return out.cpu().numpy(), stats, sec, counts, peak
+
+
+def check_edit(label, out, stats, counts, dense, shape, cache):
+    """The RegionE edit's checks: finite latents of the right shape, a
+    partial partition with RAGS steps, PSNR against dense, and the launch
+    counts of its cache format (K2 for bf16, K2q for int8 / int4; K1 > 0,
+    K3 == 1).  Returns the PSNR."""
+    p = psnr(dense, out)
+    finite = bool(np.isfinite(dense).all() and np.isfinite(out).all())
+    log(f"{label}: edited_tokens {stats.edited_tokens} capacity "
+        f"{stats.capacity} seq_len {stats.seq_len} dense_steps "
+        f"{stats.dense_steps} rags_steps {stats.rags_steps} reuse_steps "
+        f"{stats.reuse_steps}; psnr_latent_vs_dense {p:.2f} dB, finite "
+        f"{finite}, shape {out.shape}")
+    rags, other = (("attention_rows2", "attention_rows2_quant")
+                   if cache == "bf16" else
+                   ("attention_rows2_quant", "attention_rows2"))
+    problems = []
+    if not (counts["attention"] > 0 and counts[rags] > 0
+            and counts[other] == 0 and counts["fused_partition"] == 1):
+        problems.append(f"launch counts {counts}")
+    if not 0 < stats.edited_tokens < stats.seq_len:
+        problems.append(f"partition not partial ({stats.edited_tokens})")
+    if stats.rags_steps <= 0:
+        problems.append("no RAGS steps")
+    if not finite or out.shape != shape:
+        problems.append("latents not finite or of the wrong shape")
+    if not p >= PSNR_MIN:
+        problems.append(f"PSNR {p:.2f} < {PSNR_MIN}")
+    if problems:
+        fail(f"{label}: " + "; ".join(problems))
+    return p
+
+
+def _request(cfg, seed, grid):
+    import torch
+    r = np.random.default_rng(seed)
+    lat0 = torch.from_numpy(r.standard_normal(
+        (1, grid * grid, cfg.in_channels), np.float32)).to(DEVICE)
+    return r, lat0
 
 
 def phase_slice(grid):
@@ -381,12 +658,11 @@ def phase_slice(grid):
     in the timed RegionE edit (the second request)."""
     import torch
     from regione_tpu.core.config import RegionEParams
-    from regione_tpu_torch.core.partition import select_edited_mask
     from regione_tpu_torch.models.presets import get_config
     from regione_tpu_torch.pipelines.step1x_edit import Step1XEditPipeline
     from regione_tpu_torch.weights.from_jax import init_params
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     cfg = get_config("step1x-edit")
     t = time.perf_counter()
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
@@ -397,7 +673,6 @@ def phase_slice(grid):
     re = RegionEParams(warmup_step=6, post_step=2, refresh_step=(16,),
                        threshold=0.88, cache_threshold=0.02)
     pipe = Step1XEditPipeline(model, re, true_cfg_scale=6.0)
-    s = grid * grid
     rng = np.random.default_rng(110)
     rope = pipe.build_rope(grid, grid, T_TXT)
     txt = torch.from_numpy(rng.standard_normal(
@@ -405,102 +680,107 @@ def phase_slice(grid):
     pooled = torch.from_numpy(rng.standard_normal(
         (2, cfg.pooled_dim), np.float32)).to(dev, cfg.dtype)
     sampler = pipe.sampler_for(grid, grid, T_TXT, 2)
-    warm = sampler.plan[: re.warmup_step - 1]
-    part = sampler.plan[re.warmup_step - 1]
-
-    @torch.inference_mode()
-    def x0_probe(lat, ctx):
-        """x0 estimate at the partition step (the sampler's math)."""
-        import dataclasses
-        ctx = dataclasses.replace(ctx, s_noise=s)
-        lat = sampler._dense_steps(lat.float(), warm, ctx)
-        v, _ = pipe.dense_forward(lat, part.sigma, None, ctx, False)
-        return lat + part.dt_final * v
-
-    # structured condition latent (bench.py's probe): the x0 estimate with
-    # a block replaced by noise, so the adaptive partition is partial with
-    # random weights; the block's 5x5 dilation covers ~25% of the grid
-    b0, b1 = grid // 16, grid * 7 // 16
-    block = np.zeros((grid, grid), bool)
-    block[b0:b1, b0:b1] = True
-    target = block.reshape(-1)
-
     runs = []
     for req, seed in enumerate((110, 111)):
-        r = np.random.default_rng(seed)
-        lat0 = torch.from_numpy(r.standard_normal(
-            (1, s, cfg.in_channels), np.float32)).to(dev)
-        noise_block = r.standard_normal((int(target.sum()), cfg.in_channels))
-        cond = r.standard_normal((1, s, cfg.in_channels))
-        for it in range(3):
-            t = time.perf_counter()
-            x0 = x0_probe(lat0, _ctx(txt, pooled, cond, rope))
-            cond = x0.cpu().numpy().copy()
-            cond[0, target] = noise_block
-            mask = select_edited_mask(
-                x0, torch.as_tensor(cond, dtype=torch.float32, device=dev),
-                re.threshold, grid_h=grid, grid_w=grid,
-                erosion_dilation=re.erosion_dilation)
-            frac = float(mask.float().mean())
-            log(f"request {req}: probe {it}: edited fraction {frac:.3f} "
-                f"({time.perf_counter() - t:.1f}s)")
-            if 0.18 <= frac <= 0.35 and it >= 1:
-                break
+        label = f"step1x request {req}"
+        r, lat0 = _request(cfg, seed, grid)
+        cond = structured_condition(pipe, sampler, re, grid, txt, pooled,
+                                    rope, lat0, r, label)
         ctx = _ctx(txt, pooled, cond, rope)
-
-        reset_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        dense, _ = pipe.edit_latents(lat0, ctx, grid, grid, dense_only=True)
-        torch.cuda.synchronize()
-        dense_s = time.perf_counter() - t
-        dense_counts = read_counts()
-
-        reset_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out, stats = pipe.edit_latents(lat0, ctx, grid, grid)
-        torch.cuda.synchronize()
-        regione_s = time.perf_counter() - t
-        counts = read_counts()
-
-        dense_np = dense.cpu().numpy()
-        out_np = out.cpu().numpy()
-        p = psnr(dense_np, out_np)
-        finite = bool(np.isfinite(dense_np).all() and np.isfinite(out_np).all())
-        log(f"request {req}: dense launches {dense_counts}")
-        log(f"request {req}: RegionE launches {counts}")
-        log(f"request {req}: edited_tokens {stats.edited_tokens} capacity "
-            f"{stats.capacity} seq_len {stats.seq_len} dense_steps "
-            f"{stats.dense_steps} rags_steps {stats.rags_steps} reuse_steps "
-            f"{stats.reuse_steps}")
-        log(f"request {req}: dense_s {dense_s:.3f} regione_s {regione_s:.3f} "
-            f"speedup {dense_s / regione_s:.3f}x psnr_latent_vs_dense "
-            f"{p:.2f} dB, finite {finite}, shape {tuple(out.shape)}")
-        problems = []
-        if not (counts["attention"] > 0 and counts["attention_rows2"] > 0
-                and counts["fused_partition"] == 1):
-            problems.append(f"launch counts {counts}")
-        if not 0 < stats.edited_tokens < stats.seq_len:
-            problems.append(f"partition not partial ({stats.edited_tokens})")
-        if stats.rags_steps <= 0:
-            problems.append("no RAGS steps")
-        if not finite or tuple(out.shape) != (1, s, cfg.out_channels):
-            problems.append("latents not finite or of the wrong shape")
-        if not p >= PSNR_MIN:
-            problems.append(f"PSNR {p:.2f} < {PSNR_MIN}")
-        if problems:
-            fail(f"request {req}: " + "; ".join(problems))
+        dense, _, dense_s, dense_counts, _ = timed_edit(pipe, lat0, ctx, grid,
+                                                        dense_only=True)
+        out, stats, regione_s, counts, peak = timed_edit(pipe, lat0, ctx,
+                                                         grid)
+        log(f"{label}: dense launches {dense_counts}")
+        log(f"{label}: RegionE launches {counts}")
+        log(f"{label}: dense_s {dense_s:.3f} regione_s {regione_s:.3f} "
+            f"speedup {dense_s / regione_s:.3f}x, peak device memory "
+            f"{peak:.1f} GiB")
+        check_edit(label, out, stats, counts, dense,
+                   (1, grid * grid, cfg.out_channels), "bf16")
         runs.append(counts)
-    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
-        "GiB")
     return runs[-1], (pipe, ctx, lat0)
+
+
+def phase_qwen_slice(grid, preset="qwen-image-edit"):
+    """Qwen-Image-Edit at full width and depth on the card, random bf16
+    weights, batch-2 CFG at scale 4 with the norm-preserving combine, the
+    Qwen knobs: the dense and the int8-cache RegionE edit of two requests;
+    then the second request's RegionE edit with the int8, the int4 and the
+    bf16 cache in turns, twice, on the same weights (only the config's
+    cache flags change).  Returns {cache format: launch counts} and the
+    int8 pipeline's (pipe, ctx, lat0) for the profile."""
+    import torch
+    from regione_tpu.core.config import DEFAULT_PARAMS
+    from regione_tpu_torch.models.presets import get_config
+    from regione_tpu_torch.pipelines.qwen_image_edit import (
+        QwenImageEditPipeline)
+    from regione_tpu_torch.weights.from_jax import init_params
+
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(get_config(preset), cache_int8=True)
+    t = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{preset}: {n_params / 1e9:.3f} B params, {cfg.dtype} on {dev} in "
+        f"{time.perf_counter() - t:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    re = DEFAULT_PARAMS["qwen-image-edit"]
+    pipe = QwenImageEditPipeline(model, re)
+    rng = np.random.default_rng(120)
+    rope = pipe.build_rope(grid, grid, T_TXT)
+    txt = torch.from_numpy(rng.standard_normal(
+        (2, T_TXT, cfg.txt_in_dim), np.float32)).to(dev, cfg.dtype)
+    sampler = pipe.sampler_for(grid, grid, T_TXT, 2)
+    shape = (1, grid * grid, cfg.out_channels)
+    counts, outs = {}, {}
+    for req, seed in enumerate((120, 121)):
+        label = f"qwen request {req}"
+        r, lat0 = _request(cfg, seed, grid)
+        cond = structured_condition(pipe, sampler, re, grid, txt, None, rope,
+                                    lat0, r, label)
+        ctx = _ctx(txt, None, cond, rope)
+        dense, _, dense_s, dense_counts, _ = timed_edit(pipe, lat0, ctx, grid,
+                                                        dense_only=True)
+        out, stats, regione_s, c, peak = timed_edit(pipe, lat0, ctx, grid)
+        log(f"{label}: dense launches {dense_counts}")
+        log(f"{label}: RegionE int8-cache launches {c}")
+        log(f"{label}: dense_s {dense_s:.3f} regione_s {regione_s:.3f} "
+            f"speedup {dense_s / regione_s:.3f}x, int8 cache, peak device "
+            f"memory {peak:.1f} GiB")
+        check_edit(f"{label} int8", out, stats, c, dense, shape, "int8")
+        counts["int8"], outs["int8"] = c, out
+    # request 1 again with each cache format, in turns, twice: one edit a
+    # format is within the run-to-run spread of a host-bound RegionE edit
+    formats = {"int8": {}, "int4": dict(cache_int8=False, cache_int4=True),
+               "bf16": dict(cache_int8=False)}
+    secs = {name: [] for name in formats}
+    for rnd in range(2):
+        for name, flags in formats.items():
+            model.cfg = dataclasses.replace(cfg, **flags)
+            pipe_f = QwenImageEditPipeline(model, re)
+            out, stats, sec, c, peak = timed_edit(pipe_f, lat0, ctx, grid)
+            label = f"qwen request 1, {name} cache, round {rnd}"
+            log(f"{label}: launches {c}")
+            log(f"{label}: regione_s {sec:.3f} speedup {dense_s / sec:.3f}x, "
+                f"peak device memory {peak:.1f} GiB")
+            check_edit(label, out, stats, c, dense, shape, name)
+            counts[name], outs[name] = c, out
+            secs[name].append(sec)
+    model.cfg = cfg
+    log("qwen request 1, regione_s by cache format, rounds 0 / 1: " + ", ".join(
+        f"{n} {s[0]:.3f} / {s[1]:.3f}" for n, s in secs.items()))
+    log(f"qwen request 1, cache formats against the bf16 cache: int8 "
+        f"{psnr(outs['bf16'], outs['int8']):.2f} dB, int4 "
+        f"{psnr(outs['bf16'], outs['int4']):.2f} dB latent PSNR")
+    return counts, (pipe, ctx, lat0)
 
 
 def _kernel_group(name: str) -> str:
     n = name.lower()
     if "attention_kernel" in n:
-        return "attention K1/K2"
+        return "attention K1/K2/K2q"
     if "partition_kernel" in n:
         return "partition K3"
     if any(k in n for k in ("gemm", "nvjet", "cutlass", "xmma", "sm90")):
@@ -508,7 +788,7 @@ def _kernel_group(name: str) -> str:
     return "other (norms, RoPE, elementwise, copies)"
 
 
-def phase_profile(pipe, ctx, lat0, grid):
+def phase_profile(name, pipe, ctx, lat0, grid):
     """Device time by kernel group over one dense and one RegionE edit
     (torch.profiler's CUDA trace), and the device's idle share: 1 - kernel
     time / host wall time of the edit (one stream, kernels never overlap)."""
@@ -521,14 +801,14 @@ def phase_profile(pipe, ctx, lat0, grid):
     trace_dir = BUILD_DIR.parent / "profile"     # inside the checkout
     trace_dir.mkdir(parents=True, exist_ok=True)
     for dense_only in (True, False):
-        label = "dense" if dense_only else "RegionE"
+        label = f"{name} {'dense' if dense_only else 'RegionE'}"
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             pipe.edit_latents(lat0, ctx, grid, grid, dense_only=dense_only)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-        path = str(trace_dir / f"trace_{label}.json")
+        path = str(trace_dir / "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
@@ -551,15 +831,31 @@ def phase_profile(pipe, ctx, lat0, grid):
             log(f"    {sec:.3f}s {n}")
 
 
+SRC = "regione_tpu_torch/csrc/attention.cu"
+JAX_FA = "regione_tpu/ops/flash_attention.py"
+# record key -> (name, source, TPU kernel replaced, the path whose launch
+# count the record carries, the counter)
 KERNELS = {
-    "attention": ("K1 attention", "regione_tpu_torch/csrc/attention.cu",
-                  "regione_tpu/ops/flash_attention.py:69"),
-    "attention_rows2": ("K2 attention_rows2",
-                        "regione_tpu_torch/csrc/attention.cu",
-                        "regione_tpu/ops/flash_attention.py:357"),
+    "attention": ("K1 attention", SRC, f"{JAX_FA}:69", "qwen_int8",
+                  "attention"),
+    "attention_rows2": ("K2 attention_rows2 (bf16 cache)", SRC,
+                        f"{JAX_FA}:357", "step1x", "attention_rows2"),
+    "rows2_int8": ("K2q attention_rows2_quant (int8 cache)", SRC,
+                   f"{JAX_FA}:357", "qwen_int8", "attention_rows2_quant"),
+    "rows2_int4": ("K2q attention_rows2_quant (int4 cache)", SRC,
+                   f"{JAX_FA}:357", "qwen_int4", "attention_rows2_quant"),
     "fused_partition": ("K3 fused_partition",
                         "regione_tpu_torch/csrc/partition.cu",
-                        "regione_tpu/ops/partition_kernel.py:30"),
+                        "regione_tpu/ops/partition_kernel.py:30", "qwen_int8",
+                        "fused_partition"),
+    "attention_long": ("K5 attention past 12,288 keys", SRC, f"{JAX_FA}:157",
+                       "plus", "attention_long"),
+    "attention_quant_int8": ("K6 attention_quant (int8)", SRC,
+                             f"{JAX_FA}:133", "quant_int8",
+                             "attention_quant"),
+    "attention_quant_int4": ("K6 attention_quant (int4)", SRC,
+                             f"{JAX_FA}:133", "quant_int4",
+                             "attention_quant"),
 }
 
 
@@ -575,21 +871,30 @@ def main():
     checks = phase_kernels(grid)
     log(f"phase kernels done in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    phase_small_reference()
+    paths = phase_small_reference()
     log(f"phase small reference done in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    launches, (pipe, ctx, lat0) = phase_slice(grid)
-    log(f"phase slice done in {time.perf_counter() - t:.1f}s")
+    paths["step1x"], (pipe, ctx, lat0) = phase_slice(grid)
+    phase_profile("step1x", pipe, ctx, lat0, grid)
+    del pipe, ctx, lat0         # 24.6 GB of Step1X weights leave the card
+    release()
+    log(f"phase slice (step1x-edit) done in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    phase_profile(pipe, ctx, lat0, grid)
-    log(f"phase profile done in {time.perf_counter() - t:.1f}s")
+    qwen, (pipe, ctx, lat0) = phase_qwen_slice(grid)
+    paths.update({f"qwen_{k}": v for k, v in qwen.items()})
+    phase_profile("qwen int8", pipe, ctx, lat0, grid)
+    del pipe, ctx, lat0
+    release()
+    log(f"phase slice (qwen-image-edit) done in "
+        f"{time.perf_counter() - t:.1f}s")
 
     import torch
     record = []
-    for name, (label, src, replaces) in KERNELS.items():
-        ok, err, ms, pms = checks[name]
+    for key, (label, src, replaces, path, counter) in KERNELS.items():
+        ok, err, ms, pms = checks[key]
         record.append({"name": label, "route": "cuda", "source": src,
-                       "replaces": replaces, "launches": launches[name],
+                       "replaces": replaces,
+                       "launches": paths[path][counter],
                        "max_abs_err": err, "ms": ms, "plain_ms": pms})
     print(card)
     print(json.dumps({"kernels": record}))

@@ -1,20 +1,36 @@
 // Non-causal attention over one or two KV segments, bf16 in, fp32 softmax.
 //
-// Replaces two Pallas TPU kernels of regione_tpu/ops/flash_attention.py:
+// Replaces four Pallas TPU kernels of regione_tpu/ops/flash_attention.py:
 //   K1 `_kv_resident_kernel` (via `flash_attention`): dense and write steps,
 //      one KV segment [B, H, S, D].
+//   K5 `_flash_kernel` (the same call past the resident budget, S > 12,288
+//      keys): this kernel streams K/V at any S, so it is K1's launch.
 //   K2 `_rows2_resident_kernel` with a bf16 cache (via `flash_attention_rows2`):
 //      RAGS steps, fresh rows [B, H, S1, D] followed by the frozen cache
 //      [B, H, S2, D], one softmax over both, the cache read in place.
-// Both are the same algorithm over one or two pointer ranges, so one kernel
-// serves both (S2 = 0 for K1).
+//   K2q the same with an int8 or int4 cache (`_dequant_into`,
+//      `_unpack4_f32`), and K6 `_kv_resident_q8_kernel`: a quantized K/V
+//      segment with no fresh rows (S1 = 0).
+// All are the same algorithm over one or two pointer ranges, so one kernel
+// serves them (S2 = 0 for K1/K5, S1 = 0 for K6).
 //
 // What it computes, per (b, h): out = softmax(q k^T / sqrt(D) + bias) v, with
 // the logits and softmax in fp32, P cast to bf16 for the PV product, and fp32
 // accumulation; bias is an optional fp32 key-column row [B, S1 + S2].  The
 // output goes straight into [B, T, H*D] (the `sdpa` contract).
 //
-// What bounds it on an H100: at the slice's shapes (T = S = 2176..8320,
+// The quantized second segment (mode2 = 1 int8, 2 int4) holds S2 logical rows
+// with fp32 row scales [B, H, S2] (row-dense).  int8: one code per value.
+// int4 (ops/quant.py S-halves packing): S2/2 stored rows, row j < S2/2 in the
+// low nibble of stored row j, row j >= S2/2 in the high nibble of stored row
+// j - S2/2; a tile that straddles S2/2 mixes both, row by row.  The dequant
+// happens inside the tile load: code -> fp32, times the row's scale in fp32,
+// one rounding to bf16, as the plain `dequantize_kv_heads*` do, so the K/V
+// that enter the mma are bit-equal to the plain version's.  No dequantized
+// copy of the cache is made: the TPU kernel's point (HBM reads stay int8 or
+// int4) carried over to the H100's HBM.
+//
+// What bounds it on an H100: at the slice's shapes (T = S = 2176..12416,
 // D = 128) attention is compute bound: 4*T*S*D flops against 2*(T+S)*D*2
 // bytes per (b, h).  The TPU kernel kept a whole head's K and V resident in
 // VMEM and took one full-row softmax; a Hopper SM has at most 227 KB of shared
@@ -45,18 +61,28 @@ constexpr int kBQ = 64;         // query rows per CTA
 constexpr int kBK = 64;         // keys per tile
 constexpr int kThreads = 128;   // four warps, 16 query rows each
 constexpr int kLds = kD + 8;    // padded shared row (bf16): conflict-free reads
+constexpr int kChunk = 16;      // head-dim values a thread loads per step
+
+// storage of the second segment's rows
+constexpr int kBf16 = 0;
+constexpr int kInt8 = 1;
+constexpr int kInt4 = 2;        // S-halves nibble packing, S2 / 2 stored rows
 
 struct AttnParams {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k1;
   const __nv_bfloat16* v1;
-  const __nv_bfloat16* k2;
-  const __nv_bfloat16* v2;
+  const void* k2;               // bf16, or int8 codes / packed nibbles
+  const void* v2;
+  const float* ks2;             // [B, H, S2] row scales (quantized mode2)
+  const float* vs2;
   const float* bias;            // [B, S1 + S2] or null
   __nv_bfloat16* out;           // [B, T, H * D]
-  // element strides (b, h, row) of q, k1, v1, k2, v2; the last dim is dense
+  // element strides (b, h, row) of q, k1, v1, k2, v2 in their own dtypes;
+  // the last dim is dense
   long long q_s[3], k1_s[3], v1_s[3], k2_s[3], v2_s[3];
-  int B, H, T, S1, S2;
+  long long ks2_s[2], vs2_s[2]; // (b, h) strides of the scales; rows dense
+  int B, H, T, S1, S2, mode2;
   float scale;
 };
 
@@ -85,8 +111,76 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+__device__ __forceinline__ uint4 ld128(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// Sixteen int8 codes (int4: the low or high nibbles of sixteen packed bytes)
+// -> sixteen bf16 values code * scale, rounded once from fp32; lo holds
+// values 0..7, hi 8..15.  Bytes are sign-extended by arithmetic shifts of the
+// 32-bit word (as `_unpack4_f32` does through int32).
+__device__ __forceinline__ void dequant16(uint4 w, float sc, int mode,
+                                          bool high, uint4& lo, uint4& hi) {
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+  uint32_t out[8];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      int c0, c1;
+      if (mode == kInt8) {
+        c0 = static_cast<int>(words[q] << (24 - 8 * e)) >> 24;
+        c1 = static_cast<int>(words[q] << (16 - 8 * e)) >> 24;
+      } else if (high) {
+        c0 = static_cast<int>(words[q] << (24 - 8 * e)) >> 28;
+        c1 = static_cast<int>(words[q] << (16 - 8 * e)) >> 28;
+      } else {
+        c0 = static_cast<int>(words[q] << (28 - 8 * e)) >> 28;
+        c1 = static_cast<int>(words[q] << (20 - 8 * e)) >> 28;
+      }
+      out[q * 2 + e / 2] = pack_bf16(static_cast<float>(c0) * sc,
+                                     static_cast<float>(c1) * sc);
+    }
+  }
+  lo = make_uint4(out[0], out[1], out[2], out[3]);
+  hi = make_uint4(out[4], out[5], out[6], out[7]);
+}
+
+// Values [c, c + 16) of key and value row j2 of the second segment as bf16.
+__device__ __forceinline__ void load_seg2(const AttnParams& p, int b, int h,
+                                          int j2, int c, uint4* kv) {
+  if (p.mode2 == kBf16) {
+    const __nv_bfloat16* kr = static_cast<const __nv_bfloat16*>(p.k2) +
+                              b * p.k2_s[0] + h * p.k2_s[1] +
+                              j2 * p.k2_s[2] + c;
+    const __nv_bfloat16* vr = static_cast<const __nv_bfloat16*>(p.v2) +
+                              b * p.v2_s[0] + h * p.v2_s[1] +
+                              j2 * p.v2_s[2] + c;
+    kv[0] = ld128(kr);
+    kv[1] = ld128(kr + 8);
+    kv[2] = ld128(vr);
+    kv[3] = ld128(vr + 8);
+    return;
+  }
+  int row = j2;
+  bool high = false;
+  if (p.mode2 == kInt4) {
+    const int half = p.S2 / 2;
+    high = j2 >= half;
+    row = high ? j2 - half : j2;
+  }
+  const int8_t* kr = static_cast<const int8_t*>(p.k2) + b * p.k2_s[0] +
+                     h * p.k2_s[1] + row * p.k2_s[2] + c;
+  const int8_t* vr = static_cast<const int8_t*>(p.v2) + b * p.v2_s[0] +
+                     h * p.v2_s[1] + row * p.v2_s[2] + c;
+  const float ksc = p.ks2[b * p.ks2_s[0] + h * p.ks2_s[1] + j2];
+  const float vsc = p.vs2[b * p.vs2_s[0] + h * p.vs2_s[1] + j2];
+  dequant16(ld128(kr), ksc, p.mode2, high, kv[0], kv[1]);
+  dequant16(ld128(vr), vsc, p.mode2, high, kv[2], kv[3]);
+}
+
 __global__ void __launch_bounds__(kThreads)
-attention_kernel(const AttnParams p) {
+attention_kernel(const __grid_constant__ AttnParams p) {
   __shared__ __align__(16) __nv_bfloat16 ks[kBK * kLds];
   __shared__ __align__(16) __nv_bfloat16 vs[kBK * kLds];
 
@@ -122,30 +216,31 @@ attention_kernel(const AttnParams p) {
   const float* brow = p.bias ? p.bias + (long long)b * S : nullptr;
   const __nv_bfloat16* k1b = p.k1 + b * p.k1_s[0] + h * p.k1_s[1];
   const __nv_bfloat16* v1b = p.v1 + b * p.v1_s[0] + h * p.v1_s[1];
-  const __nv_bfloat16* k2b =
-      p.S2 ? p.k2 + b * p.k2_s[0] + h * p.k2_s[1] : nullptr;
-  const __nv_bfloat16* v2b =
-      p.S2 ? p.v2 + b * p.v2_s[0] + h * p.v2_s[1] : nullptr;
 
   for (int j0 = 0; j0 < S; j0 += kBK) {
     __syncthreads();  // every warp is done with the previous tile
-    // ---- K/V tile -> shared memory, 16 bytes per load, zero past S -------
-    for (int i = tid; i < kBK * (kD / 8); i += kThreads) {
-      const int r = i / (kD / 8);
-      const int ch = (i % (kD / 8)) * 8;
+    // ---- K/V tile -> shared memory, 16 values per step, zero past S -----
+    // (a quantized second segment is dequantized here, on its way in)
+    for (int i = tid; i < kBK * (kD / kChunk); i += kThreads) {
+      const int r = i / (kD / kChunk);
+      const int c = (i % (kD / kChunk)) * kChunk;
       const int j = j0 + r;
-      uint4 kv = make_uint4(0, 0, 0, 0);
-      uint4 vv = make_uint4(0, 0, 0, 0);
+      uint4 kv[4] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0),
+                     make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
       if (j < p.S1) {
-        kv = *reinterpret_cast<const uint4*>(k1b + j * p.k1_s[2] + ch);
-        vv = *reinterpret_cast<const uint4*>(v1b + j * p.v1_s[2] + ch);
+        const __nv_bfloat16* kr = k1b + j * p.k1_s[2] + c;
+        const __nv_bfloat16* vr = v1b + j * p.v1_s[2] + c;
+        kv[0] = ld128(kr);
+        kv[1] = ld128(kr + 8);
+        kv[2] = ld128(vr);
+        kv[3] = ld128(vr + 8);
       } else if (j < S) {
-        const int j2 = j - p.S1;
-        kv = *reinterpret_cast<const uint4*>(k2b + j2 * p.k2_s[2] + ch);
-        vv = *reinterpret_cast<const uint4*>(v2b + j2 * p.v2_s[2] + ch);
+        load_seg2(p, b, h, j - p.S1, c, kv);
       }
-      *reinterpret_cast<uint4*>(&ks[r * kLds + ch]) = kv;
-      *reinterpret_cast<uint4*>(&vs[r * kLds + ch]) = vv;
+      *reinterpret_cast<uint4*>(&ks[r * kLds + c]) = kv[0];
+      *reinterpret_cast<uint4*>(&ks[r * kLds + c + 8]) = kv[1];
+      *reinterpret_cast<uint4*>(&vs[r * kLds + c]) = kv[2];
+      *reinterpret_cast<uint4*>(&vs[r * kLds + c + 8]) = kv[3];
     }
     __syncthreads();
 
@@ -256,32 +351,46 @@ attention_kernel(const AttnParams p) {
 
 }  // namespace
 
-// strides: 15 element strides, (b, h, row) for q, k1, v1, k2, v2 in order.
-// S2 == 0 runs the one-segment kernel (k2/v2 unused).  Launches on `stream`,
-// allocates nothing, and returns cudaGetLastError() of the launch.
+// strides: 19 element strides: (b, h, row) for q, k1, v1, k2, v2 in order,
+// each in its tensor's own dtype, then (b, h) for the scales ks2, vs2.
+// S2 == 0 runs the one-segment kernel (k2/v2 unused); S1 == 0 attends over
+// the second segment alone.  mode2: 0 bf16 k2/v2, 1 int8 codes, 2 int4
+// S-halves packed (S2 / 2 stored rows, S2 even); ks2/vs2 are the fp32 row
+// scales [B, H, S2] of a quantized segment (null for bf16).  Launches on
+// `stream`, allocates nothing, and returns cudaGetLastError() of the launch.
 extern "C" int regione_attention_fwd(const void* q, const void* k1,
                                      const void* v1, const void* k2,
-                                     const void* v2, const void* bias,
+                                     const void* v2, const void* ks2,
+                                     const void* vs2, const void* bias,
                                      void* out, const long long* strides,
                                      int B, int H, int T, int S1, int S2,
-                                     float scale, void* stream) {
+                                     int mode2, float scale, void* stream) {
   AttnParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k1 = static_cast<const __nv_bfloat16*>(k1);
   p.v1 = static_cast<const __nv_bfloat16*>(v1);
-  p.k2 = static_cast<const __nv_bfloat16*>(k2);
-  p.v2 = static_cast<const __nv_bfloat16*>(v2);
+  p.k2 = k2;
+  p.v2 = v2;
+  p.ks2 = static_cast<const float*>(ks2);
+  p.vs2 = static_cast<const float*>(vs2);
   p.bias = static_cast<const float*>(bias);
   p.out = static_cast<__nv_bfloat16*>(out);
   long long* dst[5] = {p.q_s, p.k1_s, p.v1_s, p.k2_s, p.v2_s};
   for (int i = 0; i < 5; ++i)
     for (int j = 0; j < 3; ++j) dst[i][j] = strides[i * 3 + j];
+  for (int j = 0; j < 2; ++j) {
+    p.ks2_s[j] = strides[15 + j];
+    p.vs2_s[j] = strides[17 + j];
+  }
   p.B = B;
   p.H = H;
   p.T = T;
   p.S1 = S1;
   p.S2 = S2;
+  p.mode2 = mode2;
   p.scale = scale;
+  if (mode2 < kBf16 || mode2 > kInt4 || (mode2 == kInt4 && S2 % 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((T + kBQ - 1) / kBQ, H, B);
   attention_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());

@@ -185,8 +185,22 @@ def sdpa(q, k, v, bias=None):
 
 
 def sdpa_cached(q, txt_kv, k_cache, v_cache, bias=None):
-    """RAGS attention: q over [fresh rows ‖ frozen cache] in one softmax,
-    the head-major cache [B, H, S, d] read in place (kernel K2).
-    txt_kv: (k, v) [B, H, T1, d] fresh rows; bias [B, 1, 1, T1+S] or None."""
+    """RAGS attention against the head-major cache [B, H, S, d], read in
+    place: q over [fresh rows ‖ cache] in one softmax (kernel K2, or K2q for
+    a quantized cache).
+    txt_kv: (k, v) [B, H, T1, d] fresh rows, or None: q over the cache
+        alone (kernel K1, or K6 for a quantized cache).
+    k_cache/v_cache: [B, H, S, d], or (int8 rows, fp32 scales [B, H, S])
+        when the cache is quantized; int4 rows hold S/2 packed rows
+        (`ops.quant`), told by the row count.
+    bias: [B, 1, 1, T1 + S] or None.
+    On the CPU the wrappers dequantize, concatenate and attend (the JAX
+    fallback); there is no VMEM gate on the card."""
+    scales = {}
+    if isinstance(k_cache, tuple):
+        (k_cache, k_s), (v_cache, v_s) = k_cache, v_cache
+        scales = dict(k_scale=k_s, v_scale=v_s)
+    if txt_kv is None:
+        return attention(q, k_cache, v_cache, _bias_row(bias), **scales)
     return attention_rows2(q, txt_kv[0], txt_kv[1], k_cache, v_cache,
-                           _bias_row(bias))
+                           _bias_row(bias), **scales)

@@ -1,7 +1,9 @@
 """Multi-modal DiT (MMDiT) backbone with the Region-Instruction KV cache.
 
 Counterpart of `regione_tpu/models/mmdit.py` for the Step1X-Edit / FLUX
-topology: double-stream blocks, then single-stream (txt-concat) blocks,
+topology (double-stream blocks, then single-stream txt-concat blocks) and
+the Qwen-Image-Edit topology (joint double-stream blocks only,
+depth_single = 0, and an RMSNorm of the raw text features, `txt_norm`):
 AdaLN-zero modulation, qk-RMSNorm and 3-axis RoPE.  Three cache modes:
 
   mode="dense" : plain attention, no cache traffic;
@@ -10,11 +12,14 @@ AdaLN-zero modulation, qk-RMSNorm and 3-axis RoPE.  Three cache modes:
                  than returning new ones, which keeps one copy on the card);
   mode="rags"  : the hidden stream holds the gathered edited tokens; they
                  attend over [fresh rows ‖ frozen cache] with the stale cache
-                 rows of edited ids masked by the bias (kernel K2).  RAGS
-                 writes nothing to the cache.
+                 rows of edited ids masked by the bias (kernel K2, or K2q
+                 for a quantized cache).  RAGS writes nothing to the cache.
 
 The cache stores attention-ready K (qk-norm and RoPE applied) and raw V,
-head-major [L, B, H, S, dh] over the image rows ([noise ‖ condition]) only.
+head-major [L, B, H, S, dh] over the image rows ([noise ‖ condition]) only:
+in the model dtype, or quantized (`cache_int8`, `cache_int4`: `ops.quant`
+rows plus fp32 row-scale leaves "dk_s" ... of [L, B, H, S]; int4 keeps S/2
+packed rows), which RAGS steps read through kernel K2q.
 The depth runs as a Python loop over `nn.ModuleList`s; linear1 of the single
 blocks is one matmul (the JAX package's deferred-MLP split was an XLA
 rematerialisation fix with the same math).
@@ -30,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from regione_tpu_torch.models.connector import Connector, ConnectorConfig
+from regione_tpu_torch.ops.quant import quantize_kv_heads, quantize_kv_heads4
 from regione_tpu_torch.models.layers import (
     MLP,
     Scale,
@@ -69,12 +75,30 @@ class MMDiTConfig:
     axes_dims: tuple = (16, 56, 56)
     rope_theta: float = 10000.0
     time_embed_dim: int = 256
+    txt_norm: bool = False         # RMSNorm of the raw text features
+                                   # before txt_in (Qwen-Image)
     connector: ConnectorConfig | None = None   # Step1X text refiner
+    cache_int8: bool = False       # KV cache as int8 + per-(row, head)
+                                   # fp32 scales (ops.quant)
+    cache_int4: bool = False       # KV cache as S-halves packed int4 +
+                                   # scales; exclusive with cache_int8
     dtype: Any = torch.bfloat16
 
     @property
     def inner(self) -> int:
         return self.heads * self.head_dim
+
+    @property
+    def cache_quant(self) -> bool:
+        """Quantized-cache structure: (rows, scales) / "_s" leaves."""
+        assert not (self.cache_int8 and self.cache_int4), \
+            "cache_int8 and cache_int4 are mutually exclusive"
+        return self.cache_int8 or self.cache_int4
+
+    def quantize_kv(self, x):
+        """Head-major K/V [..., S, dh] -> (rows, scales) of the cache."""
+        return (quantize_kv_heads4 if self.cache_int4
+                else quantize_kv_heads)(x)
 
     @property
     def mlp_hidden(self) -> int:
@@ -212,14 +236,48 @@ class SingleBlock(nn.Module):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: MMDiTConfig, batch: int, s_kv_img: int, device):
-    """Zeroed KV cache: {"dk", "dv", "sk", "sv"} of [L, B, H, S, dh] in the
-    model dtype, image rows only (txt rows re-embed every step)."""
-    shape = (batch, cfg.heads, s_kv_img, cfg.head_dim)
+    """Zeroed KV cache: {"dk", "dv"} (and {"sk", "sv"} with single blocks)
+    of [L, B, H, S, dh], image rows only (txt rows re-embed every step).
+    Quantized: int8 rows (S/2 packed rows under int4) and fp32 scale
+    leaves "dk_s" ... of [L, B, H, S] filled with 1e-12, as in JAX."""
+    quant = cfg.cache_quant
+    rows = s_kv_img
+    if cfg.cache_int4:
+        if s_kv_img % 2:
+            raise ValueError(f"an int4 cache needs an even row count, got "
+                             f"{s_kv_img}")
+        rows //= 2
     depths = {"dk": cfg.depth_double, "dv": cfg.depth_double}
     if cfg.depth_single:
         depths.update(sk=cfg.depth_single, sv=cfg.depth_single)
-    return {key: torch.zeros((depth, *shape), dtype=cfg.dtype, device=device)
-            for key, depth in depths.items()}
+    cache = {}
+    for key, depth in depths.items():
+        cache[key] = torch.zeros(
+            (depth, batch, cfg.heads, rows, cfg.head_dim),
+            dtype=torch.int8 if quant else cfg.dtype, device=device)
+        if quant:
+            cache[key + "_s"] = torch.full(
+                (depth, batch, cfg.heads, s_kv_img), 1e-12,
+                dtype=torch.float32, device=device)
+    return cache
+
+
+def _layer_kv(cache, key: str, i: int):
+    """Layer i's cache entry: a tensor, or (rows, scales) when quantized."""
+    if key + "_s" in cache:
+        return cache[key][i], cache[key + "_s"][i]
+    return cache[key][i]
+
+
+def _store_kv(cfg: MMDiTConfig, cache, key: str, i: int, x):
+    """Write mode: layer i's K or V rows into the cache, in place
+    (quantized rows and scales under cache_int8 / cache_int4)."""
+    if cfg.cache_quant:
+        rows, scales = cfg.quantize_kv(x)
+        cache[key][i].copy_(rows)
+        cache[key + "_s"][i].copy_(scales)
+    else:
+        cache[key][i].copy_(x)
 
 
 def rags_bias(sel_img_ids, s_kv: int, t_txt: int, batch: int, txt_bias):
@@ -263,6 +321,8 @@ class MMDiT(nn.Module):
             self.vector_in = mlp_embed_module(cfg.pooled_dim, h, device, dt)
         if cfg.connector is not None:
             self.connector = Connector(cfg.connector, device)
+        if cfg.txt_norm:
+            self.txt_norm = Scale(cfg.txt_in_dim, device, dt)
         if cfg.depth_single:
             self.single_blocks = nn.ModuleList(SingleBlock(cfg, device)
                                         for _ in range(cfg.depth_single))
@@ -292,34 +352,39 @@ class MMDiT(nn.Module):
             if cfg.pooled_dim:
                 temb = temb + mlp_embed(self.vector_in, y.to(dt))
         temb_act = F.silu(temb)
+        if cfg.txt_norm:
+            txt_in = rmsnorm(txt_in, self.txt_norm.scale)
         txt_h = self.txt_in(txt_in)
         t_txt = txt_h.shape[1]
 
         bias = txt_bias
         if mode == MODE_RAGS:
-            bias = rags_bias(sel_img_ids, cache["dk"].shape[3], t_txt,
-                             x.shape[0], txt_bias)
+            # the cached row count: read off the scales under a quantized
+            # cache (an int4 rows leaf holds S/2 packed rows)
+            s_kv = cache["dk_s" if cfg.cache_quant else "dk"].shape[3]
+            bias = rags_bias(sel_img_ids, s_kv, t_txt, x.shape[0], txt_bias)
 
+        rags = mode == MODE_RAGS
         for i, blk in enumerate(self.double_blocks):
-            ck = cache["dk"][i] if mode == MODE_RAGS else None
-            cv = cache["dv"][i] if mode == MODE_RAGS else None
+            ck = _layer_kv(cache, "dk", i) if rags else None
+            cv = _layer_kv(cache, "dv", i) if rags else None
             x, txt_h, kv = blk(x, txt_h, temb_act, rope_img, rope_txt, mode,
                                ck, cv, bias)
             if kv is not None:
-                cache["dk"][i].copy_(kv[0])
-                cache["dv"][i].copy_(kv[1])
+                _store_kv(cfg, cache, "dk", i, kv[0])
+                _store_kv(cfg, cache, "dv", i, kv[1])
 
         if cfg.depth_single:
             stream = torch.cat([txt_h, x], dim=1)
             rope_stream = concat_rope(rope_txt, rope_img)
             for i, blk in enumerate(self.single_blocks):
-                ck = cache["sk"][i] if mode == MODE_RAGS else None
-                cv = cache["sv"][i] if mode == MODE_RAGS else None
+                ck = _layer_kv(cache, "sk", i) if rags else None
+                cv = _layer_kv(cache, "sv", i) if rags else None
                 stream, kv = blk(stream, temb_act, rope_stream, mode, ck, cv,
                                  bias, t_txt=t_txt)
                 if kv is not None:
-                    cache["sk"][i].copy_(kv[0])
-                    cache["sv"][i].copy_(kv[1])
+                    _store_kv(cfg, cache, "sk", i, kv[0])
+                    _store_kv(cfg, cache, "sv", i, kv[1])
             x = stream[:, t_txt:]
 
         shift, scale = _modulation(self.final_mod, temb_act, 2)

@@ -1,6 +1,9 @@
 """Backbone presets of the port, under the JAX package's names and numbers
-(`regione_tpu/models/presets.py`): the full-width Step1X-Edit, its scaled
-single-device variant, and the two tiny CPU test configs."""
+(`regione_tpu/models/presets.py`): the full-width Step1X-Edit and
+Qwen-Image-Edit (+ Plus), their scaled single-device variants, and the tiny
+CPU test configs.  The quantized-cache flags are not part of a preset: set
+them with `dataclasses.replace(cfg, cache_int8=True)` as the JAX package's
+callers do."""
 
 from __future__ import annotations
 
@@ -18,10 +21,26 @@ PRESETS: dict[str, MMDiTConfig] = {
         connector=ConnectorConfig(in_dim=3584, hidden=3584, heads=28,
                                   depth=2, pooled_dim=768),
     ),
+    # Qwen-Image-Edit: 60 joint double-stream blocks, no single blocks, no
+    # pooled projection, RMSNorm on the text features (20.4 B parameters)
+    "qwen-image-edit": MMDiTConfig(
+        hidden=3072, heads=24, head_dim=128, depth_double=60, depth_single=0,
+        txt_in_dim=3584, pooled_dim=0, axes_dims=(16, 56, 56), txt_norm=True,
+    ),
+    # Qwen-Image-Edit-2509 ("Plus"): the same backbone
+    "qwen-image-edit-plus": MMDiTConfig(
+        hidden=3072, heads=24, head_dim=128, depth_double=60, depth_single=0,
+        txt_in_dim=3584, pooled_dim=0, axes_dims=(16, 56, 56), txt_norm=True,
+    ),
     # scaled-down Step1X topology (1.26 B parameters, no connector)
     "step1x-edit:dev": MMDiTConfig(
         hidden=1536, heads=12, head_dim=128, depth_double=8, depth_single=16,
         txt_in_dim=1024, pooled_dim=768, axes_dims=(16, 56, 56),
+    ),
+    # scaled-down Qwen topology
+    "qwen-image-edit:dev": MMDiTConfig(
+        hidden=1536, heads=12, head_dim=128, depth_double=24, depth_single=0,
+        txt_in_dim=1024, pooled_dim=0, axes_dims=(16, 56, 56), txt_norm=True,
     ),
     # CPU unit-test configs
     "tiny": MMDiTConfig(
@@ -36,6 +55,12 @@ PRESETS: dict[str, MMDiTConfig] = {
         connector=ConnectorConfig(in_dim=16, hidden=16, heads=2, depth=2,
                                   pooled_dim=8, time_embed_dim=32,
                                   dtype=torch.float32),
+    ),
+    "tiny-qwen": MMDiTConfig(
+        hidden=32, heads=2, head_dim=16, depth_double=3, depth_single=0,
+        txt_in_dim=16, pooled_dim=0, axes_dims=(4, 6, 6), time_embed_dim=32,
+        mlp_ratio=2.0, in_channels=8, out_channels=8, dtype=torch.float32,
+        txt_norm=True,
     ),
 }
 

@@ -2,9 +2,11 @@
 to the RegionE sampler.
 
 Counterpart of the latent-space part of `regione_tpu/pipelines/base.py`:
-  * latent token geometry and 3-axis RoPE ids (noise tokens axis0 = 0,
-    condition tokens axis0 = 1);
-  * the condition latent is concatenated on dense steps only;
+  * latent token geometry and 3-axis RoPE ids (noise tokens axis0 = 0, the
+    condition grids axis0 = 1, 2, ...: one tag per reference image);
+  * the condition latent (all references, so S_cond may exceed S_noise) is
+    concatenated on dense steps only; the partition compares against its
+    first S_noise rows;
   * classifier-free guidance as a batch of two ([cond, uncond]) through the
     backbone, combined by `combine_cfg`.
 The image-level path (VAE, text encoders, `__call__`) is not ported yet.
@@ -44,7 +46,7 @@ def txt_ids(t_txt: int) -> np.ndarray:
 class EditInputs:
     """Per-image prepared inputs threaded through the sampler hooks."""
     txt: torch.Tensor              # [Bc, T_txt, txt_in_dim] (Bc = 2 with CFG)
-    cond_latent: torch.Tensor      # [1, S_cond, C]
+    cond_latent: torch.Tensor      # [1, S_cond, C], all references
     rope_img: Any                  # (cos, sin) over S_kv = S_noise + S_cond
     rope_txt: Any                  # (cos, sin) over T_txt rows
     pooled: torch.Tensor | None = None     # [Bc, pooled_dim]
@@ -85,9 +87,13 @@ class EditPipelineBase:
 
     # -- rope / geometry ----------------------------------------------------
 
-    def build_rope(self, grid_h: int, grid_w: int, t_txt: int):
-        """Rotary tables for the [noise ‖ condition] rows and the txt rows."""
-        kv_ids, t_ids = self.rope_position_ids(grid_h, grid_w, t_txt)
+    def build_rope(self, grid_h: int, grid_w: int, t_txt: int,
+                   cond_grids=None):
+        """Rotary tables for the [noise ‖ conditions] rows and the txt rows.
+        cond_grids: the (h, w) token grids of the condition image(s), each
+        with its own axis-0 tag; default one grid equal to the noise grid."""
+        kv_ids, t_ids = self.rope_position_ids(grid_h, grid_w, t_txt,
+                                               cond_grids)
         dev = self.device
         rope_img = rope_table(torch.from_numpy(kv_ids).to(dev),
                               self.cfg.axes_dims, self.cfg.rope_theta)
@@ -95,12 +101,14 @@ class EditPipelineBase:
                               self.cfg.axes_dims, self.cfg.rope_theta)
         return rope_img, rope_txt
 
-    def rope_position_ids(self, grid_h: int, grid_w: int, t_txt: int):
-        """Raw [S, 3] rotary ids for [noise ‖ condition] and txt."""
-        return (np.concatenate([latent_grid_ids(grid_h, grid_w, 0),
-                                latent_grid_ids(grid_h, grid_w,
-                                                self.cond_axis0)], 0),
-                txt_ids(t_txt))
+    def rope_position_ids(self, grid_h: int, grid_w: int, t_txt: int,
+                          cond_grids=None):
+        """Raw [S, 3] rotary ids for [noise ‖ conditions] and txt."""
+        cond_grids = cond_grids or [(grid_h, grid_w)]
+        parts = [latent_grid_ids(grid_h, grid_w, 0)]
+        for i, (ch, cw) in enumerate(cond_grids):
+            parts.append(latent_grid_ids(ch, cw, self.cond_axis0 + i))
+        return np.concatenate(parts, 0), txt_ids(t_txt)
 
     # -- model forward hooks passed to the sampler --------------------------
 

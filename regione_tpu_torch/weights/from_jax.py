@@ -8,14 +8,17 @@ the meta device) into the port's `MMDiT`:
   * block params stacked on a leading layer axis ("double", "single",
     "connector.blocks") are unstacked into the `ModuleList` entries
     (`double_blocks`, `single_blocks`, `connector.blocks`);
-  * the key "in" becomes `in_`.
+  * the key "in" becomes `in_`;
+  * a tree with no "single" (Qwen, depth_single = 0) has no single blocks,
+    and "txt_norm.scale" (Qwen's text RMSNorm) maps by name.
 Every leaf is consumed exactly once: the converted names must be exactly the
 module's parameters (a strict load), and `convert_params` reports each
 consumed leaf path.
 
 `init_params(cfg, generator, device)` draws the distributions of the JAX
 package's `init_mmdit` / `init_connector` (uniform +-1/sqrt(d_in) weights,
-zero biases, norm scales 1, connector `scale_factor` -0.91) with a torch
+zero biases, norm scales 1 (`txt_norm` included), connector `scale_factor`
+-0.91) with a torch
 generator: the same distributions, not the same bits.
 """
 

@@ -1,14 +1,23 @@
-"""The port's attention (K1, K2) against the JAX package's.
+"""The port's attention (K1/K5, K2, K2q, K6) against the JAX package's.
 
-On the CPU the port's wrappers take their plain versions
-(`attention_reference`, `attention_rows2_reference`); these are held against
-the Pallas kernels in interpret mode (`flash_attention`,
-`flash_attention_rows2`, run as tests/test_flash_attention.py and
-tests/test_rows_attention.py run them) and against `layers.sdpa`'s math
-path, at D = 128 and small T/S, in fp32.  Tolerance 2e-5: fp32 softmax and
+On the CPU the port's wrappers take their plain versions (`*_reference`);
+these are held against the Pallas kernels in interpret mode
+(`flash_attention`, `flash_attention_rows2`, run as
+tests/test_flash_attention.py, tests/test_rows_attention.py and
+tests/test_cache_int4.py run them) and against `layers.sdpa`'s math path,
+at D = 128 and small T/S, in fp32.  Tolerance 2e-5: fp32 softmax and
 matmuls in another order (the JAX package's own kernel-vs-sdpa bound).
+
+The quantized caches (K2q, K6) are quantized by the JAX package.  The
+Pallas kernels for them dequantize into a bf16 scratch and so cast P to
+bf16 whatever q's dtype: against them the bound is the JAX package's own
+for these kernels, 2e-2 (tests/test_cache_int8.py, test_cache_int4.py).
+Against the JAX math path they stand for (`layers.sdpa_cached` on the CPU:
+dequantize, concatenate, `sdpa`) the bound is 2e-5.
+K5 is `flash_attention(block_q=1024)` at
+S = 2048, past the resident budget, so the JAX side runs `_flash_kernel`.
 The CUDA kernel itself is checked against the same plain versions by the
-`cuda`-marked test, which runs only where a card is present.
+`cuda`-marked tests, which run only where a card is present.
 """
 
 import numpy as np
@@ -17,10 +26,14 @@ import pytest
 import torch
 
 from regione_tpu.models.layers import sdpa as j_sdpa
+from regione_tpu.models.layers import sdpa_cached as j_sdpa_cached
 from regione_tpu.ops import flash_attention as jfa
+from regione_tpu.ops import quant as jq
 from regione_tpu_torch.ops import flash_attention as fa
+from regione_tpu_torch.ops import quant as tq
 
 TOL = dict(rtol=2e-5, atol=2e-5)
+TOL_QKERNEL = dict(rtol=2e-2, atol=2e-2)
 B, H, D = 2, 2, 128
 
 
@@ -80,6 +93,101 @@ def test_attention_rows2_reference_matches_jax(t, with_bias):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _quant_cache(s, seed, bits):
+    """Cache rows [B, H, S, D] quantized by the JAX package: (codes, fp32
+    scales [B, H, S]) as numpy."""
+    x = _rand((B, H, s, D), seed)
+    quant = jq.quantize_kv_heads if bits == 8 else jq.quantize_kv_heads4
+    return tuple(np.array(a) for a in quant(jnp.asarray(x, jnp.float32)))
+
+
+def _jax_and_port(q, fresh, kc, vc, bias, kernel):
+    """(JAX interpret-mode kernel, JAX math path, port) outputs as numpy."""
+    jfresh = None if fresh is None else tuple(map(jnp.asarray, fresh))
+    jb = None if bias is None else jnp.asarray(bias)
+    jk = tuple(map(jnp.asarray, kc))
+    jv = tuple(map(jnp.asarray, vc))
+    want_kernel = kernel(jnp.asarray(q), jfresh, jk, jv, jb)
+    want_math = j_sdpa_cached(jnp.asarray(q), jfresh, jk, jv,
+                              None if jb is None else jb[:, None, None, :])
+    tb = None if bias is None else torch.from_numpy(bias)
+    tk = tuple(map(torch.from_numpy, kc))
+    tv = tuple(map(torch.from_numpy, vc))
+    if fresh is None:
+        got = fa.attention(torch.from_numpy(q), tk[0], tv[0], tb,
+                           k_scale=tk[1], v_scale=tv[1])
+    else:
+        got = fa.attention_rows2(torch.from_numpy(q),
+                                 *map(torch.from_numpy, fresh), tk[0], tv[0],
+                                 tb, k_scale=tk[1], v_scale=tv[1])
+    return np.asarray(want_kernel), np.asarray(want_math), got.numpy()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("t1,with_bias", [(40, False), (40, True), (13, True)])
+def test_attention_rows2_quant_reference_matches_jax(bits, t1, with_bias):
+    """K2q: fresh rows (T1 unaligned to the JAX tile at 13) over an int8 or
+    int4 cache of 256 rows."""
+    t, s = 24, 256
+    q = _rand((B, H, t, D), 20)
+    fresh = (_rand((B, H, t1, D), 21), _rand((B, H, t1, D), 22))
+    bias = _bias(B, t1 + s, 25) if with_bias else None
+
+    def kernel(q, fresh, k, v, bias):
+        return jfa.flash_attention_rows2(q, *fresh, k[0], v[0], bias,
+                                         k_scale=k[1], v_scale=v[1],
+                                         interpret=True)
+
+    want_kernel, want_math, got = _jax_and_port(
+        q, fresh, _quant_cache(s, 23, bits), _quant_cache(s, 24, bits), bias,
+        kernel)
+    assert got.shape == (B, t, H * D)
+    np.testing.assert_allclose(got, want_math, **TOL)
+    np.testing.assert_allclose(got, want_kernel, **TOL_QKERNEL)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("s,with_bias", [(256, False), (256, True),
+                                         (200, True)])
+def test_attention_quant_reference_matches_jax(bits, s, with_bias):
+    """K6: q over a quantized K/V alone (`flash_attention(k_scale=...)`);
+    S = 200 is padded by the JAX wrapper (int8) or dequantized up front
+    (int4, S % 256 != 0)."""
+    t = 40
+    q = _rand((B, H, t, D), 30)
+    bias = _bias(B, s, 33) if with_bias else None
+
+    def kernel(q, fresh, k, v, bias):
+        return jfa.flash_attention(q, k[0], v[0], bias, k_scale=k[1],
+                                   v_scale=v[1], interpret=True)
+
+    want_kernel, want_math, got = _jax_and_port(
+        q, None, _quant_cache(s, 31, bits), _quant_cache(s, 32, bits), bias,
+        kernel)
+    assert got.shape == (B, t, H * D)
+    np.testing.assert_allclose(got, want_math, **TOL)
+    np.testing.assert_allclose(got, want_kernel, **TOL_QKERNEL)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_attention_past_the_resident_budget_matches_jax(with_bias):
+    """K5: at block_q 1024 and S = 2048 the logits row is past the resident
+    budget, so `flash_attention` runs the online-softmax `_flash_kernel`."""
+    b, h, t, s = 1, 1, 1024, 2048
+    assert 4 * 1024 * s > jfa._RESIDENT_LOGITS_BUDGET
+    q, k, v = _rand((b, h, t, D), 40), _rand((b, h, s, D), 41), \
+        _rand((b, h, s, D), 42)
+    bias = _bias(b, s, 43) if with_bias else None
+    want = jfa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if bias is None else jnp.asarray(bias), block_q=1024,
+        block_k=512, interpret=True)
+    got = fa.attention(torch.from_numpy(q), torch.from_numpy(k),
+                       torch.from_numpy(v),
+                       None if bias is None else torch.from_numpy(bias))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_launch_refuses_what_the_kernel_does_not_take():
     """The kernel path checks dtype, head dim, shapes and the bias before it
     builds or launches anything."""
@@ -95,6 +203,29 @@ def test_launch_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="aligned"):
         odd = torch.zeros((1, 2, 9 * 128 + 1), dtype=torch.bfloat16)
         fa._launch(q, q, odd[..., 1:].view(1, 2, 9, 128), None, None, None)
+
+
+def test_quant_launch_refuses_what_the_kernel_does_not_take():
+    """The quantized segment: int8 rows, fp32 [B, H, S] scales with dense
+    rows, and a row count that is S (int8) or S / 2 (int4, S even)."""
+    q = torch.zeros((1, 2, 8, 128), dtype=torch.bfloat16)
+    rows = torch.zeros((1, 2, 6, 128), dtype=torch.int8)
+    sc = torch.ones((1, 2, 12))
+    with pytest.raises(TypeError, match="int8"):
+        fa._launch(q, q, q, rows.float(), rows.float(), None, sc, sc)
+    with pytest.raises(ValueError, match="fp32"):
+        fa._launch(q, q, q, rows, rows, None, sc[:, :1], sc[:, :1])
+    with pytest.raises(ValueError, match="fp32"):
+        fa._launch(q, q, q, rows, rows, None, sc.double(), sc.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.ones((1, 2, 24))
+        fa._launch(q, q, q, rows, rows, None, wide[..., ::2], wide[..., ::2])
+    with pytest.raises(ValueError, match="S even"):
+        fa._launch(q, q, q, rows, rows, None, sc[..., :11], sc[..., :11])
+    with pytest.raises(ValueError, match="v_scale"):
+        fa._launch(q, None, None, rows, rows, None, sc, None)
+    with pytest.raises(ValueError, match="bias"):
+        fa._launch(q, q, q, rows, rows, torch.zeros((1, 14)), sc, sc)
 
 
 @pytest.mark.cuda
@@ -118,3 +249,46 @@ def test_kernel_matches_plain_on_the_card(cuda_device):
              fa.attention_rows2_reference(q, k, v, kc, vc, bias))):
         err = (got.float() - want.float()).abs().max()
         assert err <= 2e-2 * want.float().abs().max()
+
+
+def _card_heads(rng, t, device):
+    x = torch.from_numpy(rng.standard_normal((B, t, H * D), np.float32))
+    return x.to(device, torch.bfloat16).view(B, t, H, D).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_kernels_match_plain_on_the_card(cuda_device, bits):
+    """K2q (a fresh segment of 70 rows, so tiles straddle both segments and,
+    under int4, the S/2 seam) and K6 against their plain versions."""
+    rng = np.random.default_rng(1)
+    q, kt, vt = (_card_heads(rng, t, cuda_device) for t in (70, 70, 70))
+    quant = tq.quantize_kv_heads if bits == 8 else tq.quantize_kv_heads4
+    kc, ks = quant(_card_heads(rng, 200, cuda_device))
+    vc, vs = quant(_card_heads(rng, 200, cuda_device))
+    bias = torch.from_numpy(_bias(B, 70 + 200, 2)).to(cuda_device)
+    for got, want in (
+            (fa.attention_rows2(q, kt, vt, kc, vc, bias, k_scale=ks,
+                                v_scale=vs),
+             fa.attention_rows2_quant_reference(q, kt, vt, kc, vc, ks, vs,
+                                                bias)),
+            (fa.attention(q, kc, vc, bias[:, 70:].contiguous(), k_scale=ks,
+                          v_scale=vs),
+             fa.attention_quant_reference(q, kc, vc, ks, vs,
+                                          bias[:, 70:]))):
+        err = (got.float() - want.float()).abs().max()
+        assert err <= 2e-2 * want.float().abs().max()
+
+
+@pytest.mark.cuda
+def test_long_s_matches_plain_on_the_card(cuda_device):
+    """K5: the K1 kernel past the resident budget (S = 12,416)."""
+    rng = np.random.default_rng(2)
+    q = _card_heads(rng, 64, cuda_device)
+    k, v = (_card_heads(rng, 12416, cuda_device) for _ in range(2))
+    before = fa.attention.long_launches
+    got = fa.attention(q, k, v)
+    assert fa.attention.long_launches == before + 1
+    want = fa.attention_reference(q, k, v)
+    err = (got.float() - want.float()).abs().max()
+    assert err <= 2e-2 * want.float().abs().max()

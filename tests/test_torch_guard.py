@@ -5,7 +5,8 @@
     has imported jax already through tests/conftest.py);
   * the kernel modules import with no triton and no nvcc;
   * CPU tensors take the plain path (no launch is counted), and a device
-    with no kernel raises instead of falling back;
+    with no kernel raises instead of falling back, for every wrapper (the
+    quantized-cache ones included);
   * the kernels' library is named by a hash of the sources, so an edit
     rebuilds.
 """
@@ -21,6 +22,7 @@ import torch
 from regione_tpu_torch.ops import _build
 from regione_tpu_torch.ops import flash_attention as fa
 from regione_tpu_torch.ops import partition_kernel as pk
+from regione_tpu_torch.ops.quant import quantize_kv_heads, quantize_kv_heads4
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -48,20 +50,33 @@ def test_port_imports_no_jax_and_builds_nothing(tmp_path):
     assert bad.strip() == "[]"
 
 
+def _launch_counts():
+    return (fa.attention.launches, fa.attention.long_launches,
+            fa.attention_rows2.launches, fa.attention_rows2_quant.launches,
+            fa.attention_quant.launches, pk.fused_partition.launches)
+
+
 def test_cpu_tensors_take_the_plain_path():
-    fa.attention.launches = fa.attention_rows2.launches = 0
+    fa.reset_launches()
     pk.fused_partition.launches = 0
     q = torch.randn(1, 2, 5, 128)
-    k = torch.randn(1, 2, 7, 128)
+    k = torch.randn(1, 2, 8, 128)
     torch.testing.assert_close(fa.attention(q, k, k),
                                fa.attention_reference(q, k, k))
     torch.testing.assert_close(fa.attention_rows2(q, k, k, k, k),
                                fa.attention_rows2_reference(q, k, k, k, k))
+    for quant in (quantize_kv_heads, quantize_kv_heads4):
+        rows, sc = quant(k)
+        torch.testing.assert_close(
+            fa.attention(q, rows, rows, k_scale=sc, v_scale=sc),
+            fa.attention_quant_reference(q, rows, rows, sc, sc))
+        torch.testing.assert_close(
+            fa.attention_rows2(q, k, k, rows, rows, k_scale=sc, v_scale=sc),
+            fa.attention_rows2_quant_reference(q, k, k, rows, rows, sc, sc))
     x = torch.randn(16, 8)
     assert torch.equal(pk.fused_partition(x, -x, 0.0, 4, 4),
                        pk.partition_reference(x, -x, 0.0, 4, 4))
-    assert (fa.attention.launches, fa.attention_rows2.launches,
-            pk.fused_partition.launches) == (0, 0, 0)
+    assert _launch_counts() == (0,) * 6
 
 
 def test_no_fallback_on_a_device_without_kernels():
@@ -70,6 +85,16 @@ def test_no_fallback_on_a_device_without_kernels():
         fa.attention(q, q, q)
     with pytest.raises(ValueError, match="no attention kernel"):
         fa.attention_rows2(q, q, q, q, q)
+    rows = torch.empty(1, 2, 4, 128, dtype=torch.int8, device="meta")
+    sc = torch.empty(1, 2, 8, device="meta")
+    for call in (lambda: fa.attention(q, rows, rows, k_scale=sc, v_scale=sc),
+                 lambda: fa.attention_quant(q, rows, rows, sc, sc),
+                 lambda: fa.attention_rows2(q, q, q, rows, rows, k_scale=sc,
+                                            v_scale=sc),
+                 lambda: fa.attention_rows2_quant(q, q, q, rows, rows, sc,
+                                                  sc)):
+        with pytest.raises(ValueError, match="no attention kernel"):
+            call()
     x = torch.empty(16, 8, device="meta")
     with pytest.raises(ValueError, match="no partition kernel"):
         pk.fused_partition(x, x, 0.0, 4, 4)

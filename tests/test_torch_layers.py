@@ -140,6 +140,34 @@ def test_sdpa_and_sdpa_cached(with_bias):
                                   j(bias2))), **TOL)
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("fresh", [True, False])
+def test_sdpa_cached_with_a_quantized_cache(bits, fresh):
+    """A (rows, scales) cache: int8, or int4 told by its S/2 rows; with
+    fresh rows (K2q) and without (K6); the JAX CPU path dequantizes,
+    concatenates and attends, and so does the port's."""
+    from regione_tpu.ops import quant as jq
+    b, h, t, t1, s, d = 2, 2, 6, 5, 10, 16
+    q = _rand((b, h, t, d), 20)
+    kt, vt = _rand((b, h, t1, d), 21), _rand((b, h, t1, d), 22)
+    quant = jq.quantize_kv_heads if bits == 8 else jq.quantize_kv_heads4
+    kc = quant(jnp.asarray(_rand((b, h, s, d), 23)))
+    vc = quant(jnp.asarray(_rand((b, h, s, d), 24)))
+    n = (t1 if fresh else 0) + s
+    bias = np.zeros((b, 1, 1, n), np.float32)
+    bias[1, ..., [0, n - 2]] = -1e30
+    jtxt = (jnp.asarray(kt), jnp.asarray(vt)) if fresh else None
+    ttxt = (torch.from_numpy(kt), torch.from_numpy(vt)) if fresh else None
+    want = jl.sdpa_cached(jnp.asarray(q), jtxt, kc, vc, jnp.asarray(bias))
+
+    def tt(pair):
+        return tuple(torch.from_numpy(np.array(a)) for a in pair)
+
+    got = tl.sdpa_cached(torch.from_numpy(q), ttxt, tt(kc), tt(vc),
+                         torch.from_numpy(bias))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_dense_forward_rounds_sigma_to_the_model_dtype(monkeypatch):
     """At bf16 the backbone sees sigma rounded to bf16 (JAX:
     `jnp.full((b,), sigma, cfg.dtype)`), in the dense and the RAGS hook."""

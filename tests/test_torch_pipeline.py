@@ -160,3 +160,61 @@ def test_sampler_variants_match_jax(variant):
     assert dataclasses.asdict(tstats) == dataclasses.asdict(jstats)
     np.testing.assert_allclose(got, want, **TOL)
 
+
+
+def test_multi_reference_rope_ids_match_jax():
+    """One axis-0 tag per condition grid: the ids and tables of
+    [noise ‖ reference 1 ‖ reference 2] equal the JAX package's."""
+    gamma = gamma_for("step1x-edit")
+    jpipe = JEditPipelineBase(j_get_config("tiny"), _params("tiny", 0),
+                              gamma=gamma)
+    tpipe = EditPipelineBase(mmdit_from_jax(_params("tiny", 0),
+                                            get_config("tiny")), gamma=gamma)
+    for grids in (None, [(8, 8), (4, 6)]):
+        for got, want in zip(
+                tpipe.rope_position_ids(8, 8, 8, cond_grids=grids),
+                jpipe.rope_position_ids(8, 8, 8, cond_grids=grids)):
+            np.testing.assert_array_equal(got, np.asarray(want))
+        for got, want in zip(tpipe.build_rope(8, 8, 8, cond_grids=grids),
+                             jpipe.build_rope(8, 8, 8, cond_grids=grids)):
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                           rtol=1e-6, atol=1e-6)
+    kv_ids, _ = tpipe.rope_position_ids(8, 8, 8, cond_grids=[(8, 8), (4, 6)])
+    assert kv_ids.shape == (64 + 64 + 24, 3)
+    assert set(kv_ids[128:, 0]) == {2.0}
+
+
+def test_multi_reference_edit_matches_jax():
+    """S_cond > S_noise (the target grid plus a 4 x 6 reference, the
+    geometry of tests/test_multiref.py) through the generic pipeline."""
+    re = RegionEParams(threshold=0.0, erosion_dilation=False,
+                       cache_threshold=0.05, capacity_granularity=8)
+    params = _params("tiny", 1)
+    gamma = gamma_for("step1x-edit")
+    jpipe = JEditPipelineBase(j_get_config("tiny"), params, re, gamma=gamma)
+    tpipe = EditPipelineBase(mmdit_from_jax(params, get_config("tiny")), re,
+                             gamma=gamma)
+    grids = [(GRID, GRID), (4, 6)]
+    rng = np.random.default_rng(6)
+    cfg = tpipe.cfg
+    txt = rng.standard_normal((1, T_TXT, cfg.txt_in_dim)).astype(np.float32)
+    pooled = rng.standard_normal((1, cfg.pooled_dim)).astype(np.float32)
+    cond = rng.standard_normal((1, S + 24, cfg.in_channels)).astype(
+        np.float32)
+    lat0 = rng.standard_normal((1, S, cfg.in_channels)).astype(np.float32)
+    rope_img, rope_txt = jpipe.build_rope(GRID, GRID, T_TXT, cond_grids=grids)
+    jctx = JEditInputs(txt=jnp.asarray(txt), cond_latent=jnp.asarray(cond),
+                       rope_img=rope_img, rope_txt=rope_txt,
+                       pooled=jnp.asarray(pooled))
+    want, jstats = jpipe.edit_latents(jnp.asarray(lat0), jctx, GRID, GRID)
+    rope_img, rope_txt = tpipe.build_rope(GRID, GRID, T_TXT, cond_grids=grids)
+    tctx = EditInputs(txt=torch.from_numpy(txt),
+                      cond_latent=torch.from_numpy(cond), rope_img=rope_img,
+                      rope_txt=rope_txt, pooled=torch.from_numpy(pooled))
+    got, tstats = tpipe.edit_latents(torch.from_numpy(lat0), tctx, GRID,
+                                     GRID)
+    assert rope_img[0].shape[0] == 2 * S + 24
+    assert 0 < tstats.edited_tokens < S and tstats.rags_steps > 0
+    assert dataclasses.asdict(tstats) == dataclasses.asdict(jstats)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
