@@ -22,7 +22,23 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
   5b. the Qwen-Image-Edit slice at full published width and depth (60
      double blocks, 20.4 B parameters, random bf16 weights): two requests
      with the int8 cache, then the second with the int8, int4 and bf16
-     caches in turns, twice, the same weights throughout; then its profile.
+     caches in turns, twice, the same weights throughout; then its profile;
+  6. the image-level path (image in, image out), fp32 VAEs with cuDNN's
+     default TF32 convs:
+     6d. (run after phase 4) each VAE family at full channel width, card
+         against the port's CPU path at 64 x 64 pixels, with TF32 convs off
+         and on, and both settings' encode / decode times at full size;
+     6b. (run on phase 5b's weights) Qwen-Image-Edit through `__call__` at
+         512 x 512 with the published-size Wan VAE and the int8 cache;
+     6a. FLUX.1 Kontext at full width (19 + 38 blocks, random bf16
+         weights, built by the CLI's `build_pipeline`) with the
+         published-size AutoencoderKL through `pipe(image, prompt)`: a
+         900 x 900 image snapped to 1024 x 1024 (a 64 x 64 token grid) and
+         restored; two RegionE calls and a dense one through
+         `RegionEHelper.disable()`, pixel PSNR of RegionE against dense;
+         the denoise's profile; then K1, K2 and K3 at this path's shapes
+         against their plain versions;
+     6c. the CLI's `run_demo` on that pipeline, writing demo_0.png.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is the kernels' JSON record, the last line the
 device record.  Imports no JAX: the port and the numpy-only
@@ -831,22 +847,316 @@ def phase_profile(name, pipe, ctx, lat0, grid):
             log(f"    {sec:.3f}s {n}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the image-level path
+# ---------------------------------------------------------------------------
+
+PROMPT = "replace the red disc with a blue square and make the sky darker"
+# card against CPU fp32 for the fp32 VAEs: with TF32 convs off, fp32 summed
+# in another order (1e-4 of the output's scale); on, TF32's 10-bit mantissa
+# through ~30 convs, bounded where an 8-bit image could move by about two
+# levels of its range (1e-2 of the scale)
+VAE_BOUND = {False: 1e-4, True: 1e-2}
+
+
+def structured_image(seed, h, w):
+    """A seeded RGB uint8 test image: smooth colour fields, a few flat
+    discs and boxes, mild noise."""
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    img = np.stack([0.5 + 0.4 * np.sin(6 * xx + 1), 0.5 + 0.4 * np.cos(5 * yy),
+                    0.5 + 0.3 * np.sin(4 * (xx + yy))], -1)
+    for k in range(6):
+        cy, cx, rad = r.uniform(0.15, 0.85), r.uniform(0.15, 0.85), \
+            r.uniform(0.05, 0.15)
+        shape = ((yy - cy) ** 2 + (xx - cx) ** 2 < rad ** 2 if k % 2 == 0 else
+                 (abs(yy - cy) < rad) & (abs(xx - cx) < rad))
+        img[shape] = r.uniform(0, 1, 3)
+    img += 0.02 * r.standard_normal(img.shape)
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def pixel_psnr(a, b) -> float:
+    """PSNR of uint8 image b against a, peak 255."""
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)
+
+
+def _image_tensor(img, device):
+    import torch
+    x = torch.from_numpy(img.astype(np.float32) / 127.5 - 1.0)
+    return x.permute(2, 0, 1)[None].to(device)
+
+
+def vae_times(vae, size, iters=3):
+    """CUDA-event ms of one encode at size x size pixels and one decode
+    of its latents."""
+    import torch
+    x = _image_tensor(structured_image(9, size, size), DEVICE)
+    with torch.inference_mode():
+        z = vae.encode(x)
+        enc = cuda_ms(lambda: vae.encode(x), iters)
+        dec = cuda_ms(lambda: vae.decode(z), iters)
+    return enc, dec
+
+
+def phase_vae_card_vs_cpu(sizes=(("AutoencoderKL", 1024), ("Wan", 512)),
+                          small=64):
+    """6d: each VAE family at its published widths, random fp32 weights:
+    encode and decode on the card against the port's CPU path at
+    small x small pixels, with cuDNN TF32 convs off and on (torch's
+    default), within VAE_BOUND; and each setting's encode / decode ms at
+    full size.  Leaves TF32 convs on for the image phases."""
+    import torch
+    from regione_tpu_torch.models.vae import VAEConfig, vae_module
+    from regione_tpu_torch.models.vae_wan import WanVAEConfig
+    from regione_tpu_torch.weights.from_jax import init_vae_params
+    cfgs = {"AutoencoderKL": VAEConfig(), "Wan": WanVAEConfig()}
+    ok = True
+    for family, size in sizes:
+        cfg = cfgs[family]
+        cpu = init_vae_params(cfg, torch.Generator().manual_seed(3))
+        card = vae_module(cfg)(cfg, torch.device(DEVICE)).eval()
+        card.load_state_dict(cpu.state_dict())
+        n = sum(p.numel() for p in cpu.parameters())
+        x = _image_tensor(structured_image(4, small, small), "cpu")
+        with torch.inference_mode():
+            z_ref = cpu.encode(x)
+            img_ref = cpu.decode(z_ref)
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            with torch.inference_mode():
+                z = card.encode(x.to(DEVICE)).cpu()
+                img = card.decode(z_ref.to(DEVICE)).cpu()
+            errs = [float((got - want).abs().max() / want.abs().max())
+                    for got, want in ((z, z_ref), (img, img_ref))]
+            good = max(errs) <= VAE_BOUND[tf32]
+            ok &= good
+            enc, dec = vae_times(card, size)
+            log(f"6d {family} ({n / 1e6:.1f} M params, fp32), cudnn TF32 "
+                f"{tf32}: card vs CPU at {small}x{small}: encode "
+                f"{errs[0]:.2e}, decode {errs[1]:.2e} of the output scale "
+                f"(bound {VAE_BOUND[tf32]:.0e}) {'ok' if good else 'FAIL'}; "
+                f"at {size}x{size}: encode {enc:.2f} ms, decode {dec:.2f} ms")
+        del cpu, card
+        release()
+    torch.backends.cudnn.allow_tf32 = True
+    log(f"cudnn allow_tf32 {torch.backends.cudnn.allow_tf32} (torch's "
+        f"default) for the image phases")
+    if not ok:
+        fail("a VAE on the card disagrees with its CPU path")
+
+
+def timed_call(pipe, image, **kw):
+    """One `pipe(image, PROMPT)`, host wall time ended by a synchronize,
+    launch counts set to 0 just before and read just after, the call's peak
+    device memory.  Returns (image, stats, seconds, counts, peak GiB)."""
+    import torch
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out, stats = pipe(image, PROMPT, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    return (out, stats, sec, read_counts(),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def check_image(label, out, stats, counts, shape, rags):
+    """An image-level RegionE edit's checks: uint8 of the caller's geometry
+    (a float image: finite, in [0, 1]); K1 > 0, K3 == 1, the RAGS kernel of
+    its cache format > 0 and the other 0.  A degenerate partition (none or
+    all edited, possible with random weights) is logged, not failed."""
+    problems = []
+    if out.shape != shape:
+        problems.append(f"shape {out.shape}, expected {shape}")
+    if out.dtype != np.uint8 and not (np.isfinite(out).all() and
+                                      0.0 <= out.min() <= out.max() <= 1.0):
+        problems.append("image not finite in [0, 1]")
+    other = ("attention_rows2" if rags == "attention_rows2_quant"
+             else "attention_rows2_quant")
+    if not (counts["attention"] > 0 and counts["fused_partition"] == 1
+            and counts[rags] > 0 and counts[other] == 0):
+        problems.append(f"launch counts {counts}")
+    partial = 0 < stats.edited_tokens < stats.seq_len
+    log(f"{label}: edited_tokens {stats.edited_tokens} capacity "
+        f"{stats.capacity} seq_len {stats.seq_len} dense_steps "
+        f"{stats.dense_steps} rags_steps {stats.rags_steps} reuse_steps "
+        f"{stats.reuse_steps} ({'partial' if partial else 'DEGENERATE'} "
+        f"partition); launches {counts}; output {out.dtype} {out.shape}")
+    if problems:
+        fail(f"{label}: " + "; ".join(problems))
+
+
+def phase_qwen_image(model, size=512, vae_cfg=None):
+    """6b: Qwen-Image-Edit through `__call__` on the phase-5b weights (int8
+    cache), with the published-size Wan VAE (random fp32 weights) and the
+    JAX package's MockTextEncoder: one RegionE edit at size x size."""
+    import torch
+    from regione_tpu.core.config import DEFAULT_PARAMS
+    from regione_tpu.models.text_encoders import MockTextEncoder
+    from regione_tpu_torch.models.vae_wan import WanVAEConfig
+    from regione_tpu_torch.pipelines.qwen_image_edit import (
+        QwenImageEditPipeline)
+    from regione_tpu_torch.weights.from_jax import init_vae_params
+    dev = torch.device(DEVICE)
+    vae = init_vae_params(vae_cfg or WanVAEConfig(),
+                          torch.Generator(dev).manual_seed(2), dev)
+    pipe = QwenImageEditPipeline(model, DEFAULT_PARAMS["qwen-image-edit"])
+    pipe.attach_vae(vae).attach_text_encoder(
+        MockTextEncoder(model.cfg.txt_in_dim, None, max_length=T_TXT))
+    image = structured_image(21, 600, 480)
+    out, stats, sec, counts, peak = timed_call(
+        pipe, image, width=size, height=size, seed=7, output_type="uint8")
+    enc, dec = vae_times(vae, size)
+    log(f"6b qwen-image-edit __call__ ({image.shape[1]}x{image.shape[0]} in, "
+        f"{size}x{size} explicit, int8 cache, Wan VAE): {sec:.3f} s end to "
+        f"end, peak device memory {peak:.1f} GiB; Wan encode {enc:.2f} ms, "
+        f"decode {dec:.2f} ms at {size}x{size}")
+    check_image("6b qwen image", out, stats, counts, (size, size, 3),
+                "attention_rows2_quant")
+    del pipe, vae
+    release()
+    return counts
+
+
+def phase_flux_image(preset="flux-kontext", vae_cfg=None, size=900):
+    """6a and 6c: FLUX.1 Kontext at full width through the image-level
+    entry points.  The CLI's `build_pipeline` builds the backbone (random
+    bf16 weights from --seed); 6a edits with it through a
+    `FluxKontextPipeline` holding the published-size AutoencoderKL; 6c runs
+    the CLI's `run_demo` on the CLI's own pipeline.  Returns the launch
+    counts of the timed RegionE call and of the CLI edit, and the kernel
+    checks at this path's shapes."""
+    import torch
+    from PIL import Image
+
+    from regione_tpu.api import RegionEHelper
+    from regione_tpu.core.config import DEFAULT_PARAMS
+    from regione_tpu.models.text_encoders import MockTextEncoder
+    from regione_tpu_torch.cli import main as cli
+    from regione_tpu_torch.models.vae import VAEConfig
+    from regione_tpu_torch.ops._build import BUILD_DIR
+    from regione_tpu_torch.pipelines.flux_kontext import FluxKontextPipeline
+    from regione_tpu_torch.weights.from_jax import init_vae_params
+
+    dev = torch.device(DEVICE)
+    out_dir = BUILD_DIR.parent / "image_phase"      # inside the checkout
+    out_dir.mkdir(parents=True, exist_ok=True)
+    image = structured_image(11, size, size)
+    cli.save_png(out_dir / "input.png", image)
+    args = cli.make_parser().parse_args([
+        "--backend", "flux-kontext", "--preset", preset, "--random_weights",
+        "--use_regione", "--device", DEVICE, "--image_path",
+        str(out_dir / "input.png"), "--prompt", PROMPT, "--output_dir",
+        str(out_dir)])
+    t = time.perf_counter()
+    cli_pipe = cli.build_pipeline(args)
+    torch.cuda.synchronize()
+    model = cli_pipe.model
+    cfg = model.cfg
+    log(f"{preset}: {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+        f"params, {cfg.dtype} on {dev}, guidance_embed {cfg.guidance_embed}, "
+        f"built by the CLI in {time.perf_counter() - t:.1f}s")
+
+    vae_cfg = vae_cfg or VAEConfig()
+    vae = init_vae_params(vae_cfg, torch.Generator(dev).manual_seed(1), dev)
+    pipe = FluxKontextPipeline(model, DEFAULT_PARAMS["flux-kontext"])
+    pipe.attach_vae(vae).attach_text_encoder(
+        MockTextEncoder(cfg.txt_in_dim, cfg.pooled_dim, max_length=T_TXT))
+    helper = RegionEHelper(pipe).enable()
+    width, height = pipe.target_resolution(size, size)
+    grid = height // pipe.token_factor
+    t = time.perf_counter()
+    ctx, _ = pipe.prepare_inputs(image, PROMPT)
+    torch.cuda.synchronize()
+    log(f"6a flux-kontext: {size}x{size} input snapped to {width}x{height}, "
+        f"grid {grid}x{width // pipe.token_factor}, S_kv "
+        f"{ctx.rope_img[0].shape[0]} + t_txt {ctx.txt.shape[1]}; prepare_inputs (host resize, VAE "
+        f"encode, prompt) {time.perf_counter() - t:.3f} s")
+    shape = (size, size, 3)
+    runs = {}
+    for name, kw in (("regione 0", dict(output_type="np")),
+                     ("regione 1", dict(output_type="uint8")),
+                     ("dense", dict(output_type="uint8"))):
+        if name == "dense":
+            helper.disable()
+        runs[name] = timed_call(pipe, image, seed=3, **kw)
+        out, stats, sec, counts, peak = runs[name]
+        log(f"6a flux {name}: {sec:.3f} s end to end, peak device memory "
+            f"{peak:.1f} GiB, launches {counts}")
+        if stats is not None:
+            check_image(f"6a flux {name}", out, stats, counts, shape,
+                        "attention_rows2")
+    dense, _, dense_s, dense_counts, _ = runs["dense"]
+    out, stats, regione_s, counts, peak = runs["regione 1"]
+    if dense_counts["fused_partition"] or dense_counts["attention_rows2"]:
+        fail(f"6a: the disabled helper did not run the dense path "
+             f"({dense_counts})")
+    enc, dec = vae_times(vae, width)
+    first = (runs["regione 0"][0] * 255).round().astype(np.uint8)
+    log(f"6a flux image: dense_s {dense_s:.3f} regione_s {regione_s:.3f} "
+        f"speedup {dense_s / regione_s:.3f}x, pixel PSNR RegionE vs dense "
+        f"{pixel_psnr(dense, out):.2f} dB (uint8, peak 255), RegionE calls 0 "
+        f"and 1 differ by at most {int(np.abs(first.astype(int) - out).max())}"
+        f" levels; AutoencoderKL encode {enc:.2f} ms, decode {dec:.2f} ms at "
+        f"{width}x{height}; peak device memory {peak:.1f} GiB")
+
+    # the denoise alone (the image call less prepare_inputs and the VAE
+    # decode), profiled
+    helper.enable()
+    lat0 = pipe.initial_latents(3, (1, grid * grid, cfg.in_channels))
+    phase_profile("flux", pipe, ctx, lat0, grid)
+
+    # the kernels at this path's shapes: dense K1 over S_kv + t_txt rows
+    # with the text bias, RAGS K2 over t_txt + capacity fresh rows and the
+    # S_kv-row cache, K3 on the grid
+    rng = np.random.default_rng(6)
+    s_kv, t_txt = ctx.rope_img[0].shape[0], ctx.txt.shape[1]
+    del ctx, runs, lat0
+    release()
+    checks = {
+        "attention": check_attention(rng, 1, cfg.heads, s_kv + t_txt,
+                                     s_kv + t_txt, True, iters=5),
+        "attention_rows2": check_rows2(rng, 1, cfg.heads, t_txt,
+                                       stats.capacity, s_kv, iters=10),
+        "fused_partition": check_partition(rng, grid, cfg.in_channels,
+                                           iters=20)}
+    if not all(r[0] for r in checks.values()):
+        fail("a kernel disagrees with its plain version at the FLUX shapes")
+
+    # 6c: the CLI's own demo path on the CLI's pipeline
+    reset_counts()
+    t = time.perf_counter()
+    cli.run_demo(cli_pipe, args)
+    cli_counts = read_counts()
+    written = np.asarray(Image.open(out_dir / "demo_0.png"))
+    log(f"6c CLI run_demo: {time.perf_counter() - t:.3f} s, wrote "
+        f"{out_dir / 'demo_0.png'} {written.dtype} {written.shape}, launches "
+        f"{cli_counts}")
+    if written.shape != shape or cli_counts["fused_partition"] != 1 or \
+            cli_counts["attention"] == 0 or cli_counts["attention_rows2"] == 0:
+        fail(f"6c: CLI output {written.shape} or launches {cli_counts}")
+    return counts, cli_counts, checks
+
+
 SRC = "regione_tpu_torch/csrc/attention.cu"
 JAX_FA = "regione_tpu/ops/flash_attention.py"
 # record key -> (name, source, TPU kernel replaced, the path whose launch
 # count the record carries, the counter)
 KERNELS = {
-    "attention": ("K1 attention", SRC, f"{JAX_FA}:69", "qwen_int8",
+    "attention": ("K1 attention", SRC, f"{JAX_FA}:69", "flux_image",
                   "attention"),
     "attention_rows2": ("K2 attention_rows2 (bf16 cache)", SRC,
-                        f"{JAX_FA}:357", "step1x", "attention_rows2"),
+                        f"{JAX_FA}:357", "flux_image", "attention_rows2"),
     "rows2_int8": ("K2q attention_rows2_quant (int8 cache)", SRC,
-                   f"{JAX_FA}:357", "qwen_int8", "attention_rows2_quant"),
+                   f"{JAX_FA}:357", "qwen_image", "attention_rows2_quant"),
     "rows2_int4": ("K2q attention_rows2_quant (int4 cache)", SRC,
                    f"{JAX_FA}:357", "qwen_int4", "attention_rows2_quant"),
     "fused_partition": ("K3 fused_partition",
                         "regione_tpu_torch/csrc/partition.cu",
-                        "regione_tpu/ops/partition_kernel.py:30", "qwen_int8",
+                        "regione_tpu/ops/partition_kernel.py:30", "flux_image",
                         "fused_partition"),
     "attention_long": ("K5 attention past 12,288 keys", SRC, f"{JAX_FA}:157",
                        "plus", "attention_long"),
@@ -874,6 +1184,9 @@ def main():
     paths = phase_small_reference()
     log(f"phase small reference done in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
+    phase_vae_card_vs_cpu()
+    log(f"phase 6d (VAEs, card vs CPU) done in {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
     paths["step1x"], (pipe, ctx, lat0) = phase_slice(grid)
     phase_profile("step1x", pipe, ctx, lat0, grid)
     del pipe, ctx, lat0         # 24.6 GB of Step1X weights leave the card
@@ -883,9 +1196,22 @@ def main():
     qwen, (pipe, ctx, lat0) = phase_qwen_slice(grid)
     paths.update({f"qwen_{k}": v for k, v in qwen.items()})
     phase_profile("qwen int8", pipe, ctx, lat0, grid)
+    model = pipe.model
     del pipe, ctx, lat0
     release()
     log(f"phase slice (qwen-image-edit) done in "
+        f"{time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    paths["qwen_image"] = phase_qwen_image(model)
+    del model           # 38.1 GiB of Qwen weights leave the card
+    release()
+    log(f"phase 6b (qwen-image-edit __call__) done in "
+        f"{time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    paths["flux_image"], paths["cli"], flux_checks = phase_flux_image()
+    checks.update(flux_checks)
+    release()
+    log(f"phase 6a/6c (flux-kontext image path, CLI) done in "
         f"{time.perf_counter() - t:.1f}s")
 
     import torch

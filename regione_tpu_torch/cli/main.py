@@ -1,0 +1,261 @@
+"""The port's command line: demo and evaluation runs.
+
+Counterpart of `regione_tpu/cli/main.py`, with its flags (the parser is the
+JAX package's `make_parser`, reused) and its output schema: demo mode
+writes `demo_<i>.png` per (image, prompt) item; `--evaluation` walks
+<eval_dir>/<task>/metadata.jsonl and writes generation/<key>.png,
+time_consuming.json (`ave_time_consuming`, `time_consuming_list`) and
+metadata.json per task.
+
+    python -m regione_tpu_torch.cli.main --backend flux-kontext \\
+        --random_weights --use_regione --image_path in.png --prompt "..."
+
+`--device` places the model (default `cuda`); with no CUDA card the run
+stops instead of moving to the CPU: pass `--device cpu` for the plain
+PyTorch path (tests, small presets).  Weights are random, drawn from
+`--seed` (`init_params`), with a small AutoencoderKL of the production
+spatial factor 8 (so the default ~1024^2 target is a 64 x 64 token grid)
+and the JAX package's `MockTextEncoder`.  Flags of modules that are not
+ported yet stop the run with a message naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from regione_tpu.cli.main import _first_item, load_image, save_png
+from regione_tpu.cli.main import make_parser as _reference_parser
+from regione_tpu.utils.metadata import item_key, resolve_item
+
+# flag -> the ROADMAP queue-1 item its module waits for
+UNPORTED = {
+    "model_path": "item 11 (checkpoint loading)",
+    "int8": "item 8 (quantized weights)",
+    "int4": "item 8 (quantized weights)",
+    "act_int8": "item 8 (quantized weights)",
+    "quantize_mods": "item 8 (quantized weights)",
+    "int4_mods": "item 8 (quantized weights)",
+    "enable_thinking": "item 12 (the v1.2 thinker)",
+    "enable_reflection": "item 12 (the v1.2 thinker)",
+}
+
+
+def make_parser():
+    """The JAX package's parser; `--device` places the model here."""
+    ap = _reference_parser()
+    ap.prog = "regione-tpu-torch"
+    ap.set_defaults(device="cuda")
+    for action in ap._actions:
+        if action.dest == "device":
+            action.help = ("torch device of the model (default cuda); with "
+                           "no CUDA card the run stops: pass 'cpu' for the "
+                           "plain PyTorch path")
+        elif action.dest in UNPORTED:
+            action.help = f"not ported yet (ROADMAP {UNPORTED[action.dest]})"
+    return ap
+
+
+def _refuse_unported(args):
+    parser = make_parser()
+    for flag, item in UNPORTED.items():
+        default = parser.get_default(flag)
+        if getattr(args, flag, default) != default:
+            raise SystemExit(f"--{flag} is not ported to regione_tpu_torch "
+                             f"yet (ROADMAP queue 1, {item})")
+
+
+def resolve_device(name) -> torch.device:
+    """The model's device; a CUDA device with no card stops the run."""
+    dev = torch.device(name or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {dev} needs a CUDA card and none is "
+                         f"available; pass --device cpu to run on the CPU")
+    return dev
+
+
+def build_pipeline(args):
+    from regione_tpu.core.config import DEFAULT_PARAMS
+    from regione_tpu.models.text_encoders import MockTextEncoder
+    from regione_tpu_torch.models.presets import get_config
+    from regione_tpu_torch.models.vae import VAEConfig
+    from regione_tpu_torch.pipelines.flux_kontext import FluxKontextPipeline
+    from regione_tpu_torch.pipelines.qwen_image_edit import (
+        QwenImageEditPipeline, QwenImageEditPlusPipeline)
+    from regione_tpu_torch.pipelines.step1x_edit import (
+        Step1XEditPipeline, Step1XEditV1P2Pipeline)
+    from regione_tpu_torch.weights.from_jax import init_params, init_vae_params
+
+    classes = {
+        "step1x-edit": Step1XEditPipeline,
+        "step1x-edit-v1p2": Step1XEditV1P2Pipeline,
+        "flux-kontext": FluxKontextPipeline,
+        "qwen-image-edit": QwenImageEditPipeline,
+        "qwen-image-edit-plus": QwenImageEditPlusPipeline,
+    }
+    _refuse_unported(args)
+    dev = resolve_device(getattr(args, "device", None))
+    backend = args.backend
+    preset = args.preset or (backend + (":dev" if args.dev else ""))
+    try:
+        cfg = get_config(preset)
+    except KeyError:
+        cfg = get_config(backend)
+
+    re = DEFAULT_PARAMS[backend].replace(
+        warmup_step=args.warmup_step, post_step=args.post_step,
+        refresh_step=args.refresh_step, threshold=args.threshold,
+        cache_threshold=args.cache_threshold,
+        erosion_dilation=args.erosion_dilation).validate()
+    steps = getattr(args, "num_inference_steps", None)
+    if steps is not None and steps != re.num_inference_steps:
+        if args.use_regione:
+            # the gamma tables are fitted at 28 steps
+            raise SystemExit("--num_inference_steps must be 28 with "
+                             "--use_regione (fitted gamma tables)")
+        if steps < 4:
+            raise SystemExit("--num_inference_steps must be >= 4")
+        # dense-only run: any step count; the unused RegionE knobs are
+        # pinned to values validate() accepts
+        re = re.replace(num_inference_steps=steps, allow_custom_steps=True,
+                        warmup_step=1, post_step=0,
+                        refresh_step=(3,)).validate()
+
+    model = init_params(cfg, torch.Generator(dev).manual_seed(args.seed), dev)
+    # 4 levels: spatial factor 8, token factor 16, as the production VAEs
+    vae_cfg = VAEConfig(block_out_channels=(8, 16, 32, 64), norm_num_groups=8,
+                        layers_per_block=1,
+                        latent_channels=cfg.in_channels // 4)
+    vae = init_vae_params(vae_cfg,
+                          torch.Generator(dev).manual_seed(args.seed + 1), dev)
+    encoder = MockTextEncoder(cfg.txt_in_dim, cfg.pooled_dim or None,
+                              max_length=128)
+    # --guidance_scale: FLUX's embedded guidance, true CFG elsewhere; None
+    # keeps the backend's default
+    kw = {}
+    gs = getattr(args, "guidance_scale", None)
+    if gs is not None:
+        kw["guidance_scale" if backend == "flux-kontext"
+           else "true_cfg_scale"] = gs
+    pipe = classes[backend](model, re, **kw)
+    pipe.attach_vae(vae)
+    pipe.attach_text_encoder(encoder)
+    pipe._regione_enabled = args.use_regione
+    return pipe
+
+
+def _edit(pipe, img, prompt, args):
+    """One timed edit: (uint8 image, stats, seconds to the finished image)."""
+    t0 = time.perf_counter()
+    out, stats = pipe(img, prompt, seed=args.seed, width=args.size_level,
+                      height=args.size_level, output_type="uint8",
+                      resize_to_input=not args.no_resize_back)
+    if pipe.device.type == "cuda":
+        torch.cuda.synchronize(pipe.device)
+    return out, stats, time.perf_counter() - t0
+
+
+def run_demo(pipe, args):
+    items = ([json.loads(line) for line in open(args.data_jsonl)]
+             if args.data_jsonl
+             else [{"image": args.image_path, "prompt": args.prompt}])
+    out_dir = Path(args.output_dir)
+    refs = [load_image(p) for p in getattr(args, "ref_image_path", None) or []]
+    times = []
+    for i, item in enumerate(items):
+        path, prompt = resolve_item(item)
+        img = load_image(path)
+        if refs:
+            img = [img] + refs   # multi-reference conditioning (Plus)
+        out, stats, dt = _edit(pipe, img, prompt, args)
+        times.append(dt)
+        save_png(out_dir / f"demo_{i}.{args.save_format}", out)
+        print(f"[{i}] {dt:.2f}s edited={getattr(stats, 'edited_tokens', '-')} "
+              f"prompt={prompt[:60]!r}")
+    if times:
+        print(f"avg {np.mean(times):.3f}s over {len(times)} images")
+
+
+def run_evaluation(pipe, args):
+    """Per task dir with metadata.jsonl: generation/<key>.png,
+    time_consuming.json and metadata.json (the JAX CLI's schema)."""
+    for task_dir in sorted(p for p in Path(args.eval_dir).iterdir()
+                           if p.is_dir()):
+        meta_file = task_dir / "metadata.jsonl"
+        if not meta_file.exists():
+            continue
+        out_task = Path(args.output_dir) / task_dir.name
+        times, metadata = [], {}
+        for line in open(meta_file):
+            item = json.loads(line)
+            path, prompt = resolve_item(item, img_dir=task_dir / "img")
+            key = item_key(item, path)
+            out, _, dt = _edit(pipe, load_image(path), prompt, args)
+            times.append(dt)
+            save_png(out_task / "generation" / f"{key}.{args.save_format}",
+                     out)
+            metadata[key] = prompt
+        out_task.mkdir(parents=True, exist_ok=True)
+        ave = float(np.mean(times)) if times else 0.0
+        with open(out_task / "time_consuming.json", "w") as fh:
+            json.dump({"num_item": len(times), "ave_time_consuming": ave,
+                       "time_consuming_list": times, "ave": ave,
+                       "list": times}, fh, indent=2)
+        with open(out_task / "metadata.json", "w") as fh:
+            json.dump(metadata, fh, indent=2)
+        print(f"{task_dir.name}: {len(times)} items, avg {ave:.2f}s")
+
+
+def main(argv=None):
+    args = make_parser().parse_args(argv)
+    # the reference's --image_path overloading: a .jsonl is the demo list;
+    # with --evaluation a directory is the dataset root
+    if args.image_path:
+        p = Path(args.image_path)
+        if args.data_jsonl is None and p.suffix == ".jsonl":
+            args.data_jsonl, args.image_path = args.image_path, None
+        elif args.eval_dir is None and args.evaluation and p.is_dir():
+            args.eval_dir, args.image_path = args.image_path, None
+    if args.evaluation:
+        if args.eval_dir is None:
+            hint = (f" ({args.image_path!r} is not an existing directory)"
+                    if args.image_path else "")
+            raise SystemExit("--evaluation needs a dataset root: pass "
+                             "--eval_dir (or the reference-style "
+                             "--image_path) pointing at an existing "
+                             "directory of task dirs" + hint)
+        if not Path(args.eval_dir).is_dir():
+            raise SystemExit(f"--eval_dir {args.eval_dir!r} is not a "
+                             f"directory")
+
+    pipe = build_pipeline(args)
+    if args.print_plan:
+        from regione_tpu.core.schedule import (
+            build_sigmas, build_stage_plan, calculate_shift, describe_plan)
+        plan = build_stage_plan(pipe.re, build_sigmas(
+            pipe.re.num_inference_steps, mu=calculate_shift(4096)), pipe.gamma)
+        print(describe_plan(plan))
+    if args.num_warmup_runs:
+        # warm on the first real input, so no timed edit pays first-call
+        # costs (the kernels' build, cuBLAS / cuDNN heuristics)
+        wpath, wprompt = _first_item(args)
+        if wpath is None:
+            raise SystemExit("--num_warmup_runs needs an input to warm on "
+                             "(no --image_path/--data_jsonl/--eval_dir "
+                             "items found)")
+        img = load_image(wpath)
+        for _ in range(args.num_warmup_runs):
+            pipe(img, wprompt or "warmup", seed=args.seed,
+                 width=args.size_level, height=args.size_level)
+    if args.evaluation:
+        run_evaluation(pipe, args)
+    else:
+        run_demo(pipe, args)
+
+
+if __name__ == "__main__":
+    main()

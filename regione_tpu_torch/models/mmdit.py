@@ -4,7 +4,9 @@ Counterpart of `regione_tpu/models/mmdit.py` for the Step1X-Edit / FLUX
 topology (double-stream blocks, then single-stream txt-concat blocks) and
 the Qwen-Image-Edit topology (joint double-stream blocks only,
 depth_single = 0, and an RMSNorm of the raw text features, `txt_norm`):
-AdaLN-zero modulation, qk-RMSNorm and 3-axis RoPE.  Three cache modes:
+AdaLN-zero modulation, qk-RMSNorm and 3-axis RoPE; FLUX.1 Kontext adds its
+distilled guidance scale to the timestep embedding (`guidance_embed`).
+Three cache modes:
 
   mode="dense" : plain attention, no cache traffic;
   mode="write" : dense attention AND store the image-stream K/V in the cache
@@ -72,6 +74,7 @@ class MMDiTConfig:
     depth_single: int = 38
     txt_in_dim: int = 4096
     pooled_dim: int = 768          # 0 -> no pooled-vector embed
+    guidance_embed: bool = False   # FLUX.1 distilled guidance embed
     axes_dims: tuple = (16, 56, 56)
     rope_theta: float = 10000.0
     time_embed_dim: int = 256
@@ -319,6 +322,9 @@ class MMDiT(nn.Module):
                                     for _ in range(cfg.depth_double))
         if cfg.pooled_dim:
             self.vector_in = mlp_embed_module(cfg.pooled_dim, h, device, dt)
+        if cfg.guidance_embed:
+            self.guidance_in = mlp_embed_module(cfg.time_embed_dim, h,
+                                                device, dt)
         if cfg.connector is not None:
             self.connector = Connector(cfg.connector, device)
         if cfg.txt_norm:
@@ -327,11 +333,12 @@ class MMDiT(nn.Module):
             self.single_blocks = nn.ModuleList(SingleBlock(cfg, device)
                                         for _ in range(cfg.depth_single))
 
-    def forward(self, img, txt, t, rope_img, rope_txt, pooled=None, *,
-                mode: str = MODE_DENSE, cache=None, sel_img_ids=None,
-                txt_bias=None):
+    def forward(self, img, txt, t, rope_img, rope_txt, pooled=None,
+                guidance=None, *, mode: str = MODE_DENSE, cache=None,
+                sel_img_ids=None, txt_bias=None):
         """img [B, T_img, C]; txt [B, T_txt, txt_in_dim]; t [B] sigma in
-        the model dtype; rope_* (cos, sin) over the img / txt rows.
+        the model dtype; guidance [B] fp32 (FLUX's distilled guidance scale,
+        embedded like a timestep); rope_* (cos, sin) over the img / txt rows.
         In rags mode T_img == cap and `sel_img_ids` [cap] maps rows into the
         cache (sentinel s_kv for pad slots).  Returns (v [B, T_img, C_out],
         cache); write mode fills `cache` in place (zeroed if None)."""
@@ -343,6 +350,10 @@ class MMDiT(nn.Module):
                          timestep_embedding(t, cfg.time_embed_dim).to(dt))
         if cfg.pooled_dim and pooled is not None and cfg.connector is None:
             temb = temb + mlp_embed(self.vector_in, pooled.to(dt))
+        if cfg.guidance_embed and guidance is not None:
+            temb = temb + mlp_embed(
+                self.guidance_in,
+                timestep_embedding(guidance, cfg.time_embed_dim).to(dt))
         txt_in = txt.to(dt)
         if cfg.connector is not None:
             txt_mask = None

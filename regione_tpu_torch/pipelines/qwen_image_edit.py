@@ -1,5 +1,4 @@
-"""Qwen-Image-Edit and Qwen-Image-Edit-2509 ("Plus") pipeline adapters
-(latent path).
+"""Qwen-Image-Edit and Qwen-Image-Edit-2509 ("Plus") pipeline adapters.
 
 Counterpart of `regione_tpu/pipelines/qwen_image_edit.py`:
   * true CFG as one batch of two ([cond, uncond]), scale 4 by default; each
@@ -10,13 +9,15 @@ Counterpart of `regione_tpu/pipelines/qwen_image_edit.py`:
   * the Qwen rotary ids: per image (frame, h, w) with frame = image index
     (noise 0, references 1, 2, ...) and centred h/w ids
     arange(n) - (n - n // 2); text rows get diagonal ids offset by
-    max(h // 2, w // 2) over all images.
+    max(h // 2, w // 2) over all images;
+  * the uncond prompt is " " (a single space) unless the caller gives one;
+  * Plus's dual-size references: each image goes to the prompt encoder at
+    ~384^2 area and to the VAE at ~1024^2 area, both multiples of 32.
 The backbone is the joint double-stream MMDiT (presets "qwen-image-edit",
 "qwen-image-edit-plus"), usually run with a quantized KV cache
 (`MMDiTConfig.cache_int8` / `cache_int4`).  Its knobs are
 `DEFAULT_PARAMS[backend]` and `gamma_for(backend)` of the shared
-`regione_tpu.core` modules.  The image-level recipe (VAE, the Qwen2.5-VL
-prompt encoder, Plus's dual-size references) is not ported yet.
+`regione_tpu.core` modules.  Its VAE is the Wan VAE (`models/vae_wan.py`).
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ def calculate_dimensions(target_area: int, ratio: float, multiple: int = 32
 class QwenImageEditPipeline(EditPipelineBase):
     backend = "qwen-image-edit"
     uses_batch_cfg = True
+    default_negative_prompt = " "
 
     def __init__(self, model, re_params=None, gamma=None,
                  true_cfg_scale: float = 4.0):
@@ -80,13 +82,30 @@ class QwenImageEditPipeline(EditPipelineBase):
 
 
 class QwenImageEditPlusPipeline(QwenImageEditPipeline):
-    """Qwen-Image-Edit-2509: multi-reference conditioning.  At latent level
-    the references are the condition latent's rows, one token grid each
+    """Qwen-Image-Edit-2509: multi-reference conditioning.  The references
+    are the condition latent's rows, one token grid each
     (`build_rope(..., cond_grids=[...])`, frame tags 1..N), so S_cond may
-    exceed S_noise.  The reference's dual-size image recipe (384^2-area
-    prompt-encoder images, 1024^2-area VAE images) waits for the image-level
-    path; its constants are kept here."""
+    exceed S_noise.  The two areas are attributes so that tests can shrink
+    them."""
 
     backend = "qwen-image-edit-plus"
     condition_image_area: int = CONDITION_IMAGE_AREA
     vae_image_area: int = VAE_IMAGE_AREA
+
+    def encoder_images(self, images, width, height):
+        """Every reference at ~384^2 area, multiples of 32."""
+        out = []
+        for img in images:
+            arr = self._to_uint8(img)
+            cw, ch = calculate_dimensions(
+                self.condition_image_area, arr.shape[1] / arr.shape[0], 32)
+            out.append(self._resize_uint8(arr, cw, ch))
+        return out
+
+    def ref_vae_size(self, ref_w: int, ref_h: int, width: int, height: int
+                     ) -> tuple[int, int]:
+        """An extra reference's own ~1024^2 area (not the target's),
+        multiples of 32, kept on the token factor's grid."""
+        f = self.token_factor
+        w, h = calculate_dimensions(self.vae_image_area, ref_w / ref_h, 32)
+        return max(f, (w // f) * f), max(f, (h // f) * f)

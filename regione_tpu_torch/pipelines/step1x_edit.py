@@ -1,4 +1,4 @@
-"""Step1X-Edit v1.1 pipeline adapter (latent path).
+"""Step1X-Edit v1.1 and v1.2 pipeline adapters.
 
 Counterpart of `regione_tpu/pipelines/step1x_edit.py`: true CFG as a batch
 of two, and the norm-processed guidance.  The reference compares its
@@ -42,3 +42,10 @@ class Step1XEditPipeline(EditPipelineBase):
         diff_norm = torch.linalg.vector_norm(diff, dim=-1, keepdim=True)
         return v_neg + scaled / process_diff_norm(diff_norm,
                                                   self.process_norm_power)
+
+
+class Step1XEditV1P2Pipeline(Step1XEditPipeline):
+    """Step1X-Edit v1.2: v1.1's transformer and CFG with its own fitted
+    gamma table (the backend name selects it).  The thinker / reflection
+    loop around it is not ported."""
+    backend = "step1x-edit-v1p2"

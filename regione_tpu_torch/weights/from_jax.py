@@ -15,11 +15,19 @@ Every leaf is consumed exactly once: the converted names must be exactly the
 module's parameters (a strict load), and `convert_params` reports each
 consumed leaf path.
 
-`init_params(cfg, generator, device)` draws the distributions of the JAX
-package's `init_mmdit` / `init_connector` (uniform +-1/sqrt(d_in) weights,
-zero biases, norm scales 1 (`txt_norm` included), connector `scale_factor`
--0.91) with a torch
-generator: the same distributions, not the same bits.
+`vae_from_jax(params, cfg, device)` does the same for a VAE param tree
+({"encoder": ..., "decoder": ...}) of either family (`models.vae_module`):
+a conv "w" [kh, kw, cin, cout] becomes `weight` [cout, cin, kh, kw], a
+linear "w" (the attention's q/k/v/out, Wan's qkv/proj) is transposed, and
+list entries ("down", "up", "resnets") become `ModuleList` indices.
+
+`init_params(cfg, generator, device)` and `init_vae_params(cfg, generator,
+device)` draw the distributions of the JAX package's `init_mmdit` /
+`init_connector` (uniform +-1/sqrt(d_in) weights, zero biases, norm scales
+1 (`txt_norm` included), connector `scale_factor` -0.91) and `init_vae` /
+`init_wan_vae` (conv weights uniform +-1/sqrt(kh * kw * cin), attention
+weights +-1/sqrt(C), zero biases, norm scales 1) with a torch generator:
+the same distributions, not the same bits.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ from torch import nn
 
 from regione_tpu_torch.models.layers import AffineNorm, Scale
 from regione_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
+from regione_tpu_torch.models.vae import GroupNorm, vae_module
+from regione_tpu_torch.models.vae_wan import RMSNorm
 
 # pytree subtrees whose leaves carry a leading layer axis -> ModuleList name
 STACKED = {"double": "double_blocks", "single": "single_blocks",
@@ -59,9 +69,10 @@ def _torch_name(path: list[str]) -> str:
 
 
 def _walk(tree, prefix=()):
-    for key, val in tree.items():
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, val in items:
         path = prefix + (str(key),)
-        if isinstance(val, dict):
+        if isinstance(val, (dict, list, tuple)):
             yield from _walk(val, path)
         else:
             yield path, val
@@ -98,6 +109,43 @@ def mmdit_from_jax(params, cfg: MMDiTConfig, device="cpu") -> MMDiT:
     model.load_state_dict(
         {k: v.to(cfg.dtype) for k, v in state.items()}, strict=True)
     return model.eval()
+
+
+def vae_from_jax(params, cfg, device="cpu") -> nn.Module:
+    """The port's VAE (`AutoencoderKL` or `WanVAE`, by the config's type)
+    holding a JAX VAE param tree's values; a strict load, every leaf
+    consumed once."""
+    vae = vae_module(cfg)(cfg, device)
+    state = {}
+    for path, leaf in _walk(params):
+        t = _to_torch(leaf, device)
+        if path[-1] == "w":
+            t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.transpose(0, 1)
+        name = _torch_name(list(path))
+        if name in state:
+            raise ValueError(f"{name} produced twice")
+        state[name] = t.to(cfg.dtype)
+    vae.load_state_dict(state, strict=True)
+    return vae.eval()
+
+
+@torch.no_grad()
+def init_vae_params(cfg, generator: torch.Generator,
+                    device="cpu") -> nn.Module:
+    """A VAE of `cfg`'s family with random weights drawn on `device` from
+    `generator`."""
+    vae = vae_module(cfg)(cfg, device)
+    for mod in vae.modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            lim = 1.0 / math.sqrt(mod.weight[0].numel())
+            mod.weight.uniform_(-lim, lim, generator=generator)
+            mod.bias.zero_()
+        elif isinstance(mod, GroupNorm):
+            mod.scale.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, RMSNorm):
+            mod.gamma.fill_(1.0)
+    return vae.eval()
 
 
 @torch.no_grad()

@@ -1,8 +1,10 @@
 """Guards of the PyTorch port: no JAX, no build at import, no fallback.
 
-  * importing `regione_tpu_torch`, every module in it and `chip_smoke.py`
-    leaves `jax` out of `sys.modules` (in a subprocess: this test process
-    has imported jax already through tests/conftest.py);
+  * importing `regione_tpu_torch`, every module in it (the VAEs, the FLUX
+    pipeline and the CLI included) and `chip_smoke.py` leaves `jax` out of
+    `sys.modules` (in a subprocess: this test process has imported jax
+    already through tests/conftest.py);
+  * the CLI with no CUDA card stops unless `--device cpu` is given;
   * the kernel modules import with no triton and no nvcc;
   * CPU tensors take the plain path (no launch is counted), and a device
     with no kernel raises instead of falling back, for every wrapper (the
@@ -35,7 +37,10 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = [m for m in ("jax", "jaxlib", "triton") if m in sys.modules]
-print(len(names), bad)
+new = {"regione_tpu_torch.models.vae", "regione_tpu_torch.models.vae_wan",
+       "regione_tpu_torch.pipelines.flux_kontext",
+       "regione_tpu_torch.cli.main"}
+print(len(names), sorted(new - set(names)) + bad)
 """
 
 
@@ -46,8 +51,22 @@ def test_port_imports_no_jax_and_builds_nothing(tmp_path):
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     n, bad = res.stdout.split(maxsplit=1)
-    assert int(n) >= 15
+    assert int(n) >= 20
     assert bad.strip() == "[]"
+
+
+def test_cli_without_a_card_stops_instead_of_using_the_cpu(monkeypatch,
+                                                           tmp_path):
+    from regione_tpu_torch.cli import main as cli
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--preset", "tiny", "--random_weights", "--prompt", "x",
+            "--image_path", str(tmp_path / "in.png"),
+            "--output_dir", str(tmp_path / "o")]
+    for extra in ([], ["--device", "cuda:0"]):
+        with pytest.raises(SystemExit, match="needs a CUDA card"):
+            cli.main(argv + extra)
+    assert not (tmp_path / "o").exists()
+    assert cli.resolve_device("cpu") == torch.device("cpu")
 
 
 def _launch_counts():

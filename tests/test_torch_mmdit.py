@@ -32,6 +32,7 @@ from regione_tpu_torch.models.layers import gather_rope, rope_table
 from regione_tpu_torch.models.presets import get_config
 from regione_tpu_torch.weights.from_jax import (convert_params, init_params,
                                                 mmdit_from_jax)
+from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 GRID, T_TXT, B = 4, 4, 2

@@ -30,6 +30,7 @@ from regione_tpu_torch.models.presets import get_config
 from regione_tpu_torch.pipelines import qwen_image_edit as tqie
 from regione_tpu_torch.pipelines.base import EditInputs
 from regione_tpu_torch.weights.from_jax import mmdit_from_jax
+from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 GRID, T_TXT = 8, 4
 S = GRID * GRID
