@@ -1,7 +1,8 @@
 """The port's command line: demo and evaluation runs.
 
-Counterpart of `regione_tpu/cli/main.py`, with its flags (the parser is the
-JAX package's `make_parser`, reused) and its output schema: demo mode
+Counterpart of `regione_tpu/cli/main.py`, with its flags (every flag,
+default and choice of the JAX parser, held equal by
+tests/test_torch_core_config.py) and its output schema: demo mode
 writes `demo_<i>.png` per (image, prompt) item; `--evaluation` walks
 <eval_dir>/<task>/metadata.jsonl and writes generation/<key>.png,
 time_consuming.json (`ave_time_consuming`, `time_consuming_list`) and
@@ -15,12 +16,13 @@ stops instead of moving to the CPU: pass `--device cpu` for the plain
 PyTorch path (tests, small presets).  Weights are random, drawn from
 `--seed` (`init_params`), with a small AutoencoderKL of the production
 spatial factor 8 (so the default ~1024^2 target is a 64 x 64 token grid)
-and the JAX package's `MockTextEncoder`.  Flags of modules that are not
+and `MockTextEncoder`.  Flags of modules that are not
 ported yet stop the run with a message naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 from pathlib import Path
@@ -28,9 +30,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from regione_tpu.cli.main import _first_item, load_image, save_png
-from regione_tpu.cli.main import make_parser as _reference_parser
-from regione_tpu.utils.metadata import item_key, resolve_item
+from regione_tpu_torch.utils.metadata import item_key, resolve_item
 
 # flag -> the ROADMAP queue-1 item its module waits for
 UNPORTED = {
@@ -45,19 +45,110 @@ UNPORTED = {
 }
 
 
-def make_parser():
-    """The JAX package's parser; `--device` places the model here."""
-    ap = _reference_parser()
-    ap.prog = "regione-tpu-torch"
-    ap.set_defaults(device="cuda")
+def _flag(text: str):
+    """--flag value parsed as a bool ("1", "true", "yes" are true)."""
+    return text.lower() in ("1", "true", "yes")
+
+
+def make_parser() -> argparse.ArgumentParser:
+    """The JAX CLI's flags, defaults and choices; `--device` places the
+    model here (default cuda), and the flags of unported modules say so."""
+    ap = argparse.ArgumentParser("regione-tpu-torch")
+    ap.add_argument("--backend", default="step1x-edit",
+                    choices=["step1x-edit", "step1x-edit-v1p2", "flux-kontext",
+                             "qwen-image-edit", "qwen-image-edit-plus"])
+    ap.add_argument("--model_path", default=None)
+    ap.add_argument("--use_regione", action="store_true")
+    ap.add_argument("--warmup_step", type=int, default=6)
+    ap.add_argument("--post_step", type=int, default=2)
+    ap.add_argument("--refresh_step", default="16")
+    ap.add_argument("--threshold", type=float, default=0.88)
+    ap.add_argument("--cache_threshold", type=float, default=0.02)
+    # bare (the reference scripts' form) or with an explicit True/False
+    ap.add_argument("--erosion_dilation", type=lambda s: s != "False",
+                    nargs="?", const=True, default=True)
+    ap.add_argument("--seed", type=int, default=110)
+    ap.add_argument("--guidance_scale", type=float, default=None,
+                    help="FLUX guidance embed / true CFG scale elsewhere "
+                         "(default: the backend's reference value)")
+    ap.add_argument("--size_level", type=int, default=None)
+    ap.add_argument("--num_inference_steps", type=int, default=None,
+                    help="denoise step count: any value for the dense "
+                         "baseline; must stay 28 with --use_regione")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the model (default cuda); with no "
+                         "CUDA card the run stops: pass 'cpu' for the plain "
+                         "PyTorch path")
+    ap.add_argument("--image_path", default=None)
+    ap.add_argument("--ref_image_path", action="append", default=None,
+                    help="extra reference image(s) for multi-reference "
+                         "conditioning (qwen-image-edit-plus); repeatable")
+    ap.add_argument("--prompt", default=None)
+    ap.add_argument("--data_jsonl", default=None)
+    ap.add_argument("--output_dir", default="outputs")
+    ap.add_argument("--evaluation", action="store_true")
+    ap.add_argument("--eval_dir", default=None)
+    ap.add_argument("--num_warmup_runs", type=int, default=0,
+                    help="full-pipeline warmup invocations before timing")
+    ap.add_argument("--dev", action="store_true",
+                    help="use the scaled :dev architecture preset")
+    ap.add_argument("--preset", default=None,
+                    help="explicit architecture preset name (overrides "
+                         "--backend/--dev resolution; e.g. 'tiny')")
+    ap.add_argument("--random_weights", action="store_true")
+    ap.add_argument("--save_format", default="png", choices=["png", "webp"])
+    ap.add_argument("--no_resize_back", action="store_true",
+                    help="keep outputs at the processed (snapped) resolution "
+                         "instead of restoring the input image's geometry")
+    ap.add_argument("--print_plan", action="store_true",
+                    help="dump the static 28-step stage plan and continue")
+    ap.add_argument("--enable_thinking", action="store_true")
+    ap.add_argument("--enable_reflection", action="store_true")
+    ap.add_argument("--max_try_cnt", type=int, default=3)
+    ap.add_argument("--int8", action="store_true")
+    ap.add_argument("--int4", action="store_true")
+    ap.add_argument("--int4_mods", default=None, type=_flag)
+    ap.add_argument("--act_int8", action="store_true")
+    ap.add_argument("--quantize_mods", default=None, type=_flag)
     for action in ap._actions:
-        if action.dest == "device":
-            action.help = ("torch device of the model (default cuda); with "
-                           "no CUDA card the run stops: pass 'cpu' for the "
-                           "plain PyTorch path")
-        elif action.dest in UNPORTED:
+        if action.dest in UNPORTED:
             action.help = f"not ported yet (ROADMAP {UNPORTED[action.dest]})"
     return ap
+
+
+def save_png(path: Path, img_uint8: np.ndarray):
+    """Save an image; .webp paths use lossless webp."""
+    from PIL import Image
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if path.suffix == ".webp":
+        Image.fromarray(img_uint8).save(path, lossless=True)
+    else:
+        Image.fromarray(img_uint8).save(path)
+
+
+def load_image(path: str) -> np.ndarray:
+    from PIL import Image
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+def _first_item(args):
+    """(image path, prompt) of the first input the timed run will see, so
+    --num_warmup_runs warms the same shapes in every input mode."""
+    if args.image_path:
+        return args.image_path, args.prompt
+    if args.data_jsonl:
+        for line in open(args.data_jsonl):
+            return resolve_item(json.loads(line))
+    if args.eval_dir:
+        for task_dir in sorted(p for p in Path(args.eval_dir).iterdir()
+                               if p.is_dir()):
+            meta_file = task_dir / "metadata.jsonl"
+            if not meta_file.exists():
+                continue
+            for line in open(meta_file):
+                return resolve_item(json.loads(line),
+                                    img_dir=task_dir / "img")
+    return None, None
 
 
 def _refuse_unported(args):
@@ -79,9 +170,9 @@ def resolve_device(name) -> torch.device:
 
 
 def build_pipeline(args):
-    from regione_tpu.core.config import DEFAULT_PARAMS
-    from regione_tpu.models.text_encoders import MockTextEncoder
+    from regione_tpu_torch.core.config import DEFAULT_PARAMS
     from regione_tpu_torch.models.presets import get_config
+    from regione_tpu_torch.models.text_encoders import MockTextEncoder
     from regione_tpu_torch.models.vae import VAEConfig
     from regione_tpu_torch.pipelines.flux_kontext import FluxKontextPipeline
     from regione_tpu_torch.pipelines.qwen_image_edit import (
@@ -234,7 +325,7 @@ def main(argv=None):
 
     pipe = build_pipeline(args)
     if args.print_plan:
-        from regione_tpu.core.schedule import (
+        from regione_tpu_torch.core.schedule import (
             build_sigmas, build_stage_plan, calculate_shift, describe_plan)
         plan = build_stage_plan(pipe.re, build_sigmas(
             pipe.re.num_inference_steps, mu=calculate_shift(4096)), pipe.gamma)

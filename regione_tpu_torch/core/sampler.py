@@ -1,7 +1,7 @@
 """The RegionE denoise driver: STS -> (RAGS <-> refresh)* -> SMS, eager.
 
 Counterpart of `regione_tpu/core/sampler.py`.  The host-static stage plan
-(`regione_tpu.core.schedule`, shared with the JAX package) decides every
+(`regione_tpu_torch.core.schedule`, the JAX module's copy) decides every
 step before the loop starts; the four segments run eagerly:
 
   1. `_warm`: the dense stabilisation steps;
@@ -32,8 +32,8 @@ from typing import Any, Callable
 
 import torch
 
-from regione_tpu.core.config import RegionEParams, pick_capacity
-from regione_tpu.core.schedule import (
+from regione_tpu_torch.core.config import RegionEParams, pick_capacity
+from regione_tpu_torch.core.schedule import (
     SCHED_PARTITION,
     SCHED_REFRESH,
     StepPlan,

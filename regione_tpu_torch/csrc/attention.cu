@@ -1,18 +1,17 @@
-// Non-causal attention over one or two KV segments, bf16 in, fp32 softmax.
+// Non-causal attention over bf16 fresh rows and a quantized (int8 or int4)
+// KV cache, bf16 q, fp32 softmax.
 //
-// Replaces four Pallas TPU kernels of regione_tpu/ops/flash_attention.py:
-//   K1 `_kv_resident_kernel` (via `flash_attention`): dense and write steps,
-//      one KV segment [B, H, S, D].
-//   K5 `_flash_kernel` (the same call past the resident budget, S > 12,288
-//      keys): this kernel streams K/V at any S, so it is K1's launch.
-//   K2 `_rows2_resident_kernel` with a bf16 cache (via `flash_attention_rows2`):
-//      RAGS steps, fresh rows [B, H, S1, D] followed by the frozen cache
-//      [B, H, S2, D], one softmax over both, the cache read in place.
-//   K2q the same with an int8 or int4 cache (`_dequant_into`,
-//      `_unpack4_f32`), and K6 `_kv_resident_q8_kernel`: a quantized K/V
-//      segment with no fresh rows (S1 = 0).
-// All are the same algorithm over one or two pointer ranges, so one kernel
-// serves them (S2 = 0 for K1/K5, S1 = 0 for K6).
+// Replaces the quantized-cache launches of two Pallas TPU kernels of
+// regione_tpu/ops/flash_attention.py (csrc/attention_tma.cu holds the bf16
+// ones, K1, K2 and K5):
+//   K2q `_rows2_resident_kernel` with an int8 or int4 cache
+//      (`_dequant_into`, `_unpack4_f32`): RAGS steps, fresh bf16 rows
+//      [B, H, S1, D] followed by the frozen quantized cache, one softmax over
+//      both, the cache read in place;
+//   K6 `_kv_resident_q8_kernel`: a quantized K/V segment with no fresh rows
+//      (S1 = 0).
+// Both are the same algorithm over one or two pointer ranges, so one kernel
+// serves them.
 //
 // What it computes, per (b, h): out = softmax(q k^T / sqrt(D) + bias) v, with
 // the logits and softmax in fp32, P cast to bf16 for the PV product, and fp32
@@ -30,17 +29,18 @@
 // copy of the cache is made: the TPU kernel's point (HBM reads stay int8 or
 // int4) carried over to the H100's HBM.
 //
-// What bounds it on an H100: at the slice's shapes (T = S = 2176..12416,
-// D = 128) attention is compute bound: 4*T*S*D flops against 2*(T+S)*D*2
-// bytes per (b, h).  The TPU kernel kept a whole head's K and V resident in
+// What bounds it on an H100: at the slice's shapes (T = 384..1152 fresh rows
+// over S2 = 2048..8192 cache rows, D = 128) attention is compute bound:
+// 4*T*S*D flops against 2*(T+S)*D*2 bytes per (b, h) and fewer for the
+// cache.  The TPU kernel kept a whole head's K and V resident in
 // VMEM and took one full-row softmax; a Hopper SM has at most 227 KB of shared
 // memory, so this kernel streams K/V in 64-row tiles instead and keeps an
 // online softmax (fp32 running max, sum and accumulator in registers).  Each
 // CTA owns 64 query rows of one (b, h), four warps with 16 rows each; the
 // products run on the tensor cores through mma.sync m16n8k16 (bf16 in, fp32
 // accumulate).  Loads are plain synchronous 16-byte loads into padded shared
-// memory: the first version is simple and right; TMA, wgmma and a multi-stage
-// pipeline are later work.
+// memory, the dequant on the way in; moving it onto attention_tma.cu's TMA
+// ring (its producer dequantizing into the bf16 stage) is later work.
 //
 // Differences from the TPU kernel, on purpose:
 //   * the running max starts at -1e30 (as `_flash_kernel` does), not -inf, so
@@ -63,8 +63,7 @@ constexpr int kThreads = 128;   // four warps, 16 query rows each
 constexpr int kLds = kD + 8;    // padded shared row (bf16): conflict-free reads
 constexpr int kChunk = 16;      // head-dim values a thread loads per step
 
-// storage of the second segment's rows
-constexpr int kBf16 = 0;
+// storage of the second segment's rows (0, bf16, goes to attention_tma.cu)
 constexpr int kInt8 = 1;
 constexpr int kInt4 = 2;        // S-halves nibble packing, S2 / 2 stored rows
 
@@ -72,9 +71,9 @@ struct AttnParams {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k1;
   const __nv_bfloat16* v1;
-  const void* k2;               // bf16, or int8 codes / packed nibbles
+  const void* k2;               // int8 codes or packed nibbles
   const void* v2;
-  const float* ks2;             // [B, H, S2] row scales (quantized mode2)
+  const float* ks2;             // [B, H, S2] row scales
   const float* vs2;
   const float* bias;            // [B, S1 + S2] or null
   __nv_bfloat16* out;           // [B, T, H * D]
@@ -146,22 +145,10 @@ __device__ __forceinline__ void dequant16(uint4 w, float sc, int mode,
   hi = make_uint4(out[4], out[5], out[6], out[7]);
 }
 
-// Values [c, c + 16) of key and value row j2 of the second segment as bf16.
+// Values [c, c + 16) of key and value row j2 of the second segment,
+// dequantized to bf16.
 __device__ __forceinline__ void load_seg2(const AttnParams& p, int b, int h,
                                           int j2, int c, uint4* kv) {
-  if (p.mode2 == kBf16) {
-    const __nv_bfloat16* kr = static_cast<const __nv_bfloat16*>(p.k2) +
-                              b * p.k2_s[0] + h * p.k2_s[1] +
-                              j2 * p.k2_s[2] + c;
-    const __nv_bfloat16* vr = static_cast<const __nv_bfloat16*>(p.v2) +
-                              b * p.v2_s[0] + h * p.v2_s[1] +
-                              j2 * p.v2_s[2] + c;
-    kv[0] = ld128(kr);
-    kv[1] = ld128(kr + 8);
-    kv[2] = ld128(vr);
-    kv[3] = ld128(vr + 8);
-    return;
-  }
   int row = j2;
   bool high = false;
   if (p.mode2 == kInt4) {
@@ -353,11 +340,12 @@ attention_kernel(const __grid_constant__ AttnParams p) {
 
 // strides: 19 element strides: (b, h, row) for q, k1, v1, k2, v2 in order,
 // each in its tensor's own dtype, then (b, h) for the scales ks2, vs2.
-// S2 == 0 runs the one-segment kernel (k2/v2 unused); S1 == 0 attends over
-// the second segment alone.  mode2: 0 bf16 k2/v2, 1 int8 codes, 2 int4
-// S-halves packed (S2 / 2 stored rows, S2 even); ks2/vs2 are the fp32 row
-// scales [B, H, S2] of a quantized segment (null for bf16).  Launches on
-// `stream`, allocates nothing, and returns cudaGetLastError() of the launch.
+// S1 == 0 attends over the second segment alone.  mode2: 1 int8 codes, 2
+// int4 S-halves packed (S2 / 2 stored rows, S2 even); ks2/vs2 are the fp32
+// row scales [B, H, S2].  Any other mode2 (0: bf16 K/V, which
+// regione_attention_tma_fwd takes) or S2 == 0 returns cudaErrorInvalidValue.
+// Launches on `stream`, allocates nothing, and returns cudaGetLastError()
+// of the launch.
 extern "C" int regione_attention_fwd(const void* q, const void* k1,
                                      const void* v1, const void* k2,
                                      const void* v2, const void* ks2,
@@ -389,7 +377,8 @@ extern "C" int regione_attention_fwd(const void* q, const void* k1,
   p.S2 = S2;
   p.mode2 = mode2;
   p.scale = scale;
-  if (mode2 < kBf16 || mode2 > kInt4 || (mode2 == kInt4 && S2 % 2))
+  if (mode2 < kInt8 || mode2 > kInt4 || S2 <= 0 ||
+      (mode2 == kInt4 && S2 % 2))
     return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((T + kBQ - 1) / kBQ, H, B);
   attention_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);

@@ -1,10 +1,14 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 All `regione_tpu_torch/csrc/*.cu` compile into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds):
+plain C interface (no PyTorch headers, so a build takes seconds).  Each
+source compiles to an object in its own nvcc process, all started
+together, then one nvcc links them:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/libregione_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu     # each, at once
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/kernels/libregione_<hash>.so *.o
 
 The library is named by a hash of the sources' contents and the flags, so an
 edit rebuilds and an unchanged tree reuses the last build.  It is built at
@@ -27,7 +31,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +39,7 @@ _F = ctypes.c_float
 # C signatures of the entry points (csrc/*.cu)
 _SIGNATURES = {
     "regione_attention_fwd": [_P] * 10 + [_I] * 6 + [_F, _P],
+    "regione_attention_tma_fwd": [_P] * 10 + [_I] * 6 + [_F, _P],
     "regione_partition_fwd": [_P, _P, _F, _I, _I, _I, _I, _P, _P],
 }
 
@@ -73,22 +78,39 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, str]:
-    """Compile csrc/*.cu into one .so unless the same sources are built.
-    Returns (path, compiler output: `-Xptxas -v` reports each kernel's
-    registers, shared memory and spills; empty when nothing was built)."""
+    """Compile csrc/*.cu into one .so unless the same sources are built:
+    one nvcc per source, all at once, then the link.  Returns (path,
+    compiler output: `-Xptxas -v` reports each kernel's registers, shared
+    memory and spills; empty when nothing was built)."""
     out = library_path()
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = [proc.communicate()[0] for _, proc in procs]   # wait for all
+    for (cmd, proc), text in zip(procs, log):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{text}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           *map(str, sources())]
+    cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
     res = subprocess.run(cmd, capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, out)
-    return out, res.stdout + res.stderr
+    return out, "".join(log) + res.stdout + res.stderr
 
 
 def load() -> ctypes.CDLL:

@@ -1,8 +1,13 @@
 """Attention for the RegionE shapes: dense (K1, K5), RAGS (K2, K2q) and a
 quantized K/V alone (K6).
 
-Every wrapper runs one hand-written CUDA kernel (`csrc/attention.cu`,
-`regione_attention_fwd`) that replaces these Pallas TPU kernels of
+Every wrapper runs one hand-written CUDA kernel, chosen by how K/V are
+stored (a fixed rule, not a fallback): bf16 K/V (`attention`,
+`attention_rows2`) run `csrc/attention_tma.cu` (`regione_attention_tma_fwd`:
+TMA ring, wgmma, one producer and two consumer warpgroups); a quantized
+cache (`attention_rows2_quant`, `attention_quant`) runs `csrc/attention.cu`
+(`regione_attention_fwd`, which dequantizes in its tile load).  Both take
+the same C arguments.  They replace these Pallas TPU kernels of
 `regione_tpu/ops/flash_attention.py`:
 
   * `attention`  <- `_kv_resident_kernel` (K1, via `flash_attention`) and,
@@ -188,17 +193,21 @@ def _launch(q, k1, v1, k2, v2, bias, k_scale=None, v_scale=None):
         *(s for x in (q, k1_, v1_, k2_, v2_) for s in _strides(x)),
         *(s for sc in scales
           for s in (_strides(sc, 2) if sc is not None else (0, 0))))
+    # the storage mode picks the kernel: bf16 K/V the Hopper TMA/wgmma one,
+    # a quantized cache the one that dequantizes in its tile load
+    entry = ("regione_attention_tma_fwd" if mode == MODE_BF16
+             else "regione_attention_fwd")
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.regione_attention_fwd(
+        code = getattr(lib, entry)(
             q.data_ptr(), k1_.data_ptr(), v1_.data_ptr(), k2_.data_ptr(),
             v2_.data_ptr(), *(sc.data_ptr() if sc is not None else None
                               for sc in scales),
             bias.data_ptr() if bias is not None else None,
             out.data_ptr(), strides, b, h, t, s1, s2, mode,
             1.0 / math.sqrt(d), stream)
-    _build.check(code, "regione_attention_fwd")
+    _build.check(code, entry)
     return out
 
 

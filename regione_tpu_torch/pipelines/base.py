@@ -20,7 +20,7 @@ Images are numpy HWC on the host; bilinear resizes antialias when
 shrinking, as `jax.image.resize` does.  The prompt encoder is any object
 with the JAX package's `encode(prompt, image=None) -> (embeds [1, T, D],
 pooled [1, P] | None, mask [1, T])` (numpy), e.g.
-`regione_tpu.models.text_encoders.MockTextEncoder`.
+`regione_tpu_torch.models.text_encoders.MockTextEncoder`.
 """
 
 from __future__ import annotations
@@ -32,11 +32,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from regione_tpu.core.config import RegionEParams
-from regione_tpu.core.gamma import gamma_for
-from regione_tpu.core.schedule import (build_sigmas, build_stage_plan,
-                                       calculate_shift)
+from regione_tpu_torch.core.config import RegionEParams
+from regione_tpu_torch.core.gamma import gamma_for
 from regione_tpu_torch.core.sampler import RegionESampler
+from regione_tpu_torch.core.schedule import (build_sigmas, build_stage_plan,
+                                             calculate_shift)
 from regione_tpu_torch.models.layers import gather_rope, rope_table
 from regione_tpu_torch.models.mmdit import (MODE_DENSE, MODE_RAGS,
                                             MODE_WRITE, MMDiT, init_cache)

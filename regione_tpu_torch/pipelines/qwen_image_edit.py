@@ -16,8 +16,8 @@ Counterpart of `regione_tpu/pipelines/qwen_image_edit.py`:
 The backbone is the joint double-stream MMDiT (presets "qwen-image-edit",
 "qwen-image-edit-plus"), usually run with a quantized KV cache
 (`MMDiTConfig.cache_int8` / `cache_int4`).  Its knobs are
-`DEFAULT_PARAMS[backend]` and `gamma_for(backend)` of the shared
-`regione_tpu.core` modules.  Its VAE is the Wan VAE (`models/vae_wan.py`).
+`DEFAULT_PARAMS[backend]` and `gamma_for(backend)` of the port's
+`core.config` and `core.gamma`.  Its VAE is the Wan VAE (`models/vae_wan.py`).
 """
 
 from __future__ import annotations

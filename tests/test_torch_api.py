@@ -1,9 +1,11 @@
-"""`RegionEHelper` (the JAX package's `regione_tpu.api`, reused by import)
-on the port's pipelines: the cases of tests/test_api.py, plus the toggle's
-effect on `edit_latents`: `disable()` runs the dense path (the latents of
-`edit_latents(dense_only=True)`, bit for bit, no stats) and `enable()` the
-RegionE one, on the CPU in fp32."""
+"""The port's `RegionEHelper` (`regione_tpu_torch.api`, its own copy of
+`regione_tpu.api`) on the port's pipelines: the cases of tests/test_api.py;
+the toggle's effect on `edit_latents`: `disable()` runs the dense path (the
+latents of `edit_latents(dense_only=True)`, bit for bit, no stats) and
+`enable()` the RegionE one, on the CPU in fp32; and the same calls of the
+JAX helper and the port's leave a port pipeline in the same state."""
 
+import dataclasses
 import functools
 
 import jax
@@ -11,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from regione_tpu.api import BACKEND_DEFAULTS, RegionEHelper
-from regione_tpu.core.config import RegionEParams
+from regione_tpu.api import RegionEHelper as JRegionEHelper
 from regione_tpu.models.mmdit import init_mmdit
 from regione_tpu.models.presets import get_config as j_get_config
+from regione_tpu_torch.api import BACKEND_DEFAULTS, RegionEHelper
+from regione_tpu_torch.core.config import RegionEParams
 from regione_tpu_torch.models.presets import get_config
 from regione_tpu_torch.pipelines.base import EditInputs
 from regione_tpu_torch.pipelines.flux_kontext import FluxKontextPipeline
@@ -128,3 +131,28 @@ def test_helper_rejects_unknown_pipeline():
         pass
     with pytest.raises(ValueError):
         RegionEHelper(Foo())
+
+
+@pytest.mark.parametrize("cls,preset", [
+    (Step1XEditPipeline, "tiny"), (Step1XEditV1P2Pipeline, "tiny"),
+    (FluxKontextPipeline, "tiny-flux"), (QwenImageEditPipeline, "tiny-qwen"),
+    (QwenImageEditPlusPipeline, "tiny-qwen")])
+def test_port_helper_drives_a_pipeline_as_the_jax_helper(cls, preset):
+    """The same calls through either helper leave the pipeline with equal
+    knobs, the same toggle and its samplers cleared."""
+    states = []
+    for helper_cls in (JRegionEHelper, RegionEHelper):
+        pipe = make_pipe(cls, preset)
+        pipe.sampler_for(GRID, GRID, T_TXT, 2)
+        helper = helper_cls(pipe)
+        seen = [helper.backend]
+        for call in (helper.enable,
+                     lambda: helper.set_params(warmup_step=5,
+                                               refresh_step="14,20",
+                                               threshold=0.5),
+                     helper.disable):
+            call()
+            seen.append((dataclasses.asdict(pipe.re), pipe._regione_enabled,
+                         len(pipe._samplers)))
+        states.append(seen)
+    assert states[1] == states[0]

@@ -16,9 +16,15 @@ Against the JAX math path they stand for (`layers.sdpa_cached` on the CPU:
 dequantize, concatenate, `sdpa`) the bound is 2e-5.
 K5 is `flash_attention(block_q=1024)` at
 S = 2048, past the resident budget, so the JAX side runs `_flash_kernel`.
-The CUDA kernel itself is checked against the same plain versions by the
-`cuda`-marked tests, which run only where a card is present.
+The CUDA kernels themselves are checked against the same plain versions
+by the `cuda`-marked tests, which run only where a card is present: bf16
+K/V go to the Hopper kernel (`regione_attention_tma_fwd`, TMA + wgmma), a
+quantized cache to `regione_attention_fwd`.  On the CPU a fake library
+records which C entry each wrapper calls and with what.
 """
+
+import contextlib
+import types
 
 import numpy as np
 import jax.numpy as jnp
@@ -290,5 +296,136 @@ def test_long_s_matches_plain_on_the_card(cuda_device):
     got = fa.attention(q, k, v)
     assert fa.attention.long_launches == before + 1
     want = fa.attention_reference(q, k, v)
+    err = (got.float() - want.float()).abs().max()
+    assert err <= 2e-2 * want.float().abs().max()
+
+
+class _FakeLib:
+    """Stands in for the kernels' library: records (entry, args), returns
+    0 (success) and leaves the output as allocated."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("regione_attention"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    """The wrappers' kernel path on CPU tensors, with the library faked."""
+    from regione_tpu_torch.ops import _build
+    lib = _FakeLib()
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(fa, "_kernel_device", lambda q: True)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    return lib
+
+
+def _bf16_heads(b, t, h=H):
+    """A head-split [B, H, T, D] view of a [B, T, H*D] bf16 tensor."""
+    x = torch.zeros((b, t, h * D), dtype=torch.bfloat16)
+    return x.view(b, t, h, D).transpose(1, 2)
+
+
+# positions in the C argument list (csrc/attention*.cu)
+_STRIDES, _B, _H, _T, _S1, _S2, _MODE = 9, 10, 11, 12, 13, 14, 15
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_bf16_goes_to_the_hopper_kernel(fake_lib, b):
+    """K1/K5 and K2 with bf16 K/V call `regione_attention_tma_fwd`, with
+    the head-split view's strides (a size-1 dim's stride as 0) and the
+    segment lengths; the launch counters count them as before."""
+    fa.reset_launches()
+    q, k = _bf16_heads(b, 70), _bf16_heads(b, 131)
+    kc = torch.zeros((b, H, 200, D), dtype=torch.bfloat16)
+    fa.attention(q, k, k, torch.zeros((b, 131)))
+    fa.attention_rows2(q, k, k, kc, kc)
+    fa.attention_rows2(q, k[:, :, :0], k[:, :, :0], kc, kc)
+    names = [name for name, _ in fake_lib.calls]
+    assert names == ["regione_attention_tma_fwd"] * 3
+    (_, a1), (_, a2), (_, a3) = fake_lib.calls
+    assert [a1[i] for i in (_B, _H, _T, _S1, _S2, _MODE)] == [b, H, 70, 131,
+                                                              0, 0]
+    assert (a2[_S1], a2[_S2], a3[_S1], a3[_S2]) == (131, 200, 0, 200)
+    b_stride = 0 if b == 1 else 70 * H * D
+    assert list(a1[_STRIDES])[:3] == [b_stride, D, H * D]
+    assert list(a2[_STRIDES])[9:12] == [0 if b == 1 else H * 200 * D,
+                                        200 * D, D]
+    assert (fa.attention.launches, fa.attention_rows2.launches) == (1, 2)
+
+
+@pytest.mark.parametrize("quant", [tq.quantize_kv_heads,
+                                   tq.quantize_kv_heads4])
+def test_quantized_cache_goes_to_the_dequantizing_kernel(fake_lib, quant):
+    """K2q and K6 (int8 or int4 cache) keep `regione_attention_fwd`."""
+    fa.reset_launches()
+    q = _bf16_heads(2, 40)
+    rows, sc = quant(torch.zeros((2, H, 64, D)))
+    fa.attention_rows2(q, q, q, rows, rows, k_scale=sc, v_scale=sc)
+    fa.attention(q, rows, rows, k_scale=sc, v_scale=sc)
+    mode = fa.MODE_INT8 if rows.shape[2] == 64 else fa.MODE_INT4
+    assert [(name, args[_S1], args[_S2], args[_MODE])
+            for name, args in fake_lib.calls] == [
+        ("regione_attention_fwd", 40, 64, mode),
+        ("regione_attention_fwd", 0, 64, mode)]
+    assert (fa.attention_rows2_quant.launches,
+            fa.attention_quant.launches) == (1, 1)
+
+
+def test_refused_arguments_raise_before_any_launch(fake_lib):
+    """A wrong dtype, a misaligned row or a bias of the wrong shape raises
+    in the wrapper: no C entry is called."""
+    q = _bf16_heads(1, 8)
+    odd = torch.zeros((1, 2, 9 * 128 + 1), dtype=torch.bfloat16)
+    mis = odd[..., 1:].view(1, 2, 9, 128)
+    for call in (lambda: fa.attention(q.float(), q.float(), q.float()),
+                 lambda: fa.attention(q, mis, mis),
+                 lambda: fa.attention_rows2(q, q, q, mis, mis),
+                 lambda: fa.attention(q, q, q, torch.zeros((1, 9))),
+                 lambda: fa.attention_rows2(q, q, q, q.half(), q.half())):
+        with pytest.raises((TypeError, ValueError)):
+            call()
+    assert fake_lib.calls == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("s1,s2", [(5, 0), (131, 0), (0, 200), (5, 200),
+                                   (131, 200)])
+def test_hopper_kernel_matches_plain_on_the_card(cuda_device, b, s1, s2):
+    """`regione_attention_tma_fwd` against its plain versions: ragged T
+    (267: two full 128-row blocks and a partial one), S1 and S2 off the
+    128-key tile, a whole key tile masked at -1e30, pad columns at -1e9,
+    head-split q/k/v views.  Tolerance 2e-2 of the output's scale (the
+    bound chip_smoke.py states: bf16 output, P rounded to bf16 before
+    normalisation in the kernel, after it in the plain version)."""
+    rng = np.random.default_rng(10 * s1 + s2 + b)
+    t = 267
+
+    def heads(rows):
+        x = torch.from_numpy(rng.standard_normal((b, rows, H * D),
+                                                 np.float32))
+        return x.to(cuda_device, torch.bfloat16).view(b, rows, H, D) \
+            .transpose(1, 2)
+
+    q, k1, v1, k2, v2 = heads(t), heads(s1), heads(s1), heads(s2), heads(s2)
+    bias = _bias(b, s1 + s2, 3)
+    lo, hi = (s1, s1 + 128) if s2 else (0, min(s1, 128))
+    bias[:, lo:hi] = -1e30          # a whole tile (at S1 = 5: every key)
+    bias = torch.from_numpy(bias).to(cuda_device)
+    if s2 == 0:
+        got = fa.attention(q, k1, v1, bias)
+        want = fa.attention_reference(q, k1, v1, bias)
+    else:
+        got = fa.attention_rows2(q, k1, v1, k2, v2, bias)
+        want = fa.attention_rows2_reference(q, k1, v1, k2, v2, bias)
+    assert got.shape == (b, t, H * D) and bool(torch.isfinite(got).all())
     err = (got.float() - want.float()).abs().max()
     assert err <= 2e-2 * want.float().abs().max()

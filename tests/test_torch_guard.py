@@ -1,18 +1,23 @@
 """Guards of the PyTorch port: no JAX, no build at import, no fallback.
 
   * importing `regione_tpu_torch`, every module in it (the VAEs, the FLUX
-    pipeline and the CLI included) and `chip_smoke.py` leaves `jax` out of
-    `sys.modules` (in a subprocess: this test process has imported jax
-    already through tests/conftest.py);
+    pipeline and the CLI included) and `chip_smoke.py` leaves `jax` and the
+    JAX package `regione_tpu` out of `sys.modules` (in a subprocess: this
+    test process has imported jax already through tests/conftest.py);
+  * no source file of the port and not `chip_smoke.py` names
+    `regione_tpu` (other than `regione_tpu_torch`) in an import statement,
+    lazy imports inside functions included;
   * the CLI with no CUDA card stops unless `--device cpu` is given;
   * the kernel modules import with no triton and no nvcc;
   * CPU tensors take the plain path (no launch is counted), and a device
     with no kernel raises instead of falling back, for every wrapper (the
     quantized-cache ones included);
   * the kernels' library is named by a hash of the sources, so an edit
-    rebuilds.
+    rebuilds; each source compiles in its own nvcc process, then one link
+    (a fake nvcc records the commands).
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -36,7 +41,8 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-bad = [m for m in ("jax", "jaxlib", "triton") if m in sys.modules]
+bad = [m for m in ("jax", "jaxlib", "triton", "regione_tpu")
+       if m in sys.modules]
 new = {"regione_tpu_torch.models.vae", "regione_tpu_torch.models.vae_wan",
        "regione_tpu_torch.pipelines.flux_kontext",
        "regione_tpu_torch.cli.main"}
@@ -53,6 +59,41 @@ def test_port_imports_no_jax_and_builds_nothing(tmp_path):
     n, bad = res.stdout.split(maxsplit=1)
     assert int(n) >= 20
     assert bad.strip() == "[]"
+
+
+def _jax_package_imports(path):
+    """(line, module) of every import of `regione_tpu[.x]` in a file."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [(node.lineno, n) for n in names
+                  if n == "regione_tpu" or n.startswith("regione_tpu.")]
+    return found
+
+
+_PORT_FILES = sorted((REPO / "regione_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_source_never_imports_the_jax_package(path):
+    assert _jax_package_imports(path) == []
+
+
+def test_the_import_scan_sees_every_form(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import regione_tpu\nimport regione_tpu_torch\n"
+                   "from regione_tpu.core import config\n"
+                   "def f():\n    import regione_tpu.api as a\n"
+                   "    from regione_tpu_torch.core import config\n")
+    assert _jax_package_imports(src) == [
+        (1, "regione_tpu"), (3, "regione_tpu.core"), (5, "regione_tpu.api")]
 
 
 def test_cli_without_a_card_stops_instead_of_using_the_cpu(monkeypatch,
@@ -137,3 +178,41 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     assert _build.library_path() != first
     assert first.parent == _build.BUILD_DIR
     assert {p.name for p in _build.sources()} == {"k.cu"}
+
+
+_FAKE_NVCC = """#!{python}
+import json, sys
+with open({log!r}, "a") as fh:
+    fh.write(json.dumps(sys.argv[1:]) + "\\n")
+out = sys.argv[sys.argv.index("-o") + 1]
+open(out, "w").write("built")
+print("ptxas info    : Used 1 registers")
+"""
+
+
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    import json
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu"):
+        (csrc / name).write_text(f"// {name}\n")
+    log = tmp_path / "nvcc.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable, log=str(log)))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    path, out = _build.build()
+    cmds = [json.loads(line) for line in log.read_text().splitlines()]
+    compiles, link = cmds[:-1], cmds[-1]
+    assert sorted(c[-1] for c in compiles) == [str(csrc / "a.cu"),
+                                               str(csrc / "b.cu")]
+    assert all("-c" in c and "sm_90a" in " ".join(c) for c in compiles)
+    assert "-shared" in link and "-c" not in link
+    assert sorted(Path(x).suffix for x in link if x.endswith(".o")) == [
+        ".o", ".o"]
+    assert path == _build.library_path() and path.read_text() == "built"
+    assert out.count("Used 1 registers") == 3
+    assert sorted(p.name for p in build.iterdir()) == [path.name]
+    assert _build.build() == (path, "")          # built: nothing to do
