@@ -7,8 +7,9 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
   2. build the hand-written kernels from regione_tpu_torch/csrc with nvcc;
   3. each kernel against its plain PyTorch version at the slices' shapes,
      with its error bound, and both times (CUDA events): K1, K2, K3, K2q
-     (int8 and int4 cache), K5 (K1 past 12,288 keys) and K6, ragged
-     K1/K2 shapes (T, S1 off the 128-row tile) included; beside each its
+     (int8 and int4 cache, at Qwen's grid-64 shape 1152 + 8192 too), K5
+     (K1 past 12,288 keys) and K6, ragged shapes (T, S1 and, under int4,
+     S2 / 2 off the 128-row tile) included; beside each its
      bound (the least time the card could take: operations at the peak
      rate or bytes at the memory rate, whichever is larger) and, for the
      attention kernels, the fastest `scaled_dot_product_attention` backend
@@ -25,9 +26,12 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
      RegionE against dense; then its device time by kernel group
      (torch.profiler) and the device's idle share;
   5b. the Qwen-Image-Edit slice at full published width and depth (60
-     double blocks, 20.4 B parameters, random bf16 weights): two requests
-     with the int8 cache, then the second with the int8, int4 and bf16
-     caches in turns, twice, the same weights throughout; then its profile;
+     double blocks, 20.4 B parameters, random bf16 weights) at its native
+     1024 x 1024 (grid 64): one request, its dense edit, the int8-cache
+     RegionE edit twice (warm, then timed), then the int4- and the
+     bf16-cache RegionE edits on the same weights; the profiles of the
+     dense, the int8 and the bf16 RegionE edit; K2q (int8, int4) and K2 at
+     this path's shape (t_txt + capacity fresh rows over the cache);
   6. the image-level path (image in, image out), fp32 VAEs with cuDNN's
      default TF32 convs:
      6d. (run after phase 4) each VAE family at full channel width, card
@@ -434,13 +438,16 @@ def check_partition(rng, grid, d, iters):
                 library=None)
 
 
-def phase_kernels(grid):
-    """Each kernel at the slices' shapes, ragged K1/K2 shapes (T and S1 off
-    the 128-row tile, B 1) included; returns the record of each kernel at
-    the shape its path gives it (grid `grid`, t_txt 128)."""
+def phase_kernels(grid, qwen_grid):
+    """Each kernel at the slices' shapes, ragged shapes (T, S1 and, under
+    int4, S2 / 2 off the 128-row tile, B 1) included; returns the record of
+    each kernel at the shape its path gives it (grid `grid`, t_txt 128; K2q
+    at Qwen's grid `qwen_grid` with capacity a quarter of the grid, which
+    phase 5b measures again at the capacity its partition gives)."""
     rng = np.random.default_rng(0)
     s_main = 128 + 2 * grid * grid
     cap = grid * grid // 4
+    q_cap, q_cache = qwen_grid * qwen_grid // 4, 2 * qwen_grid * qwen_grid
     results, ok = {}, True
     for b, t, bias in ((2, s_main, False), (2, s_main, True), (2, 8320, False),
                        (2, 8320, True), (1, 8320 - 37, True)):
@@ -456,21 +463,29 @@ def phase_kernels(grid):
     ok &= r["ok"]
     results["attention_long"] = r
     for bits in (16, 8, 4):
-        for t_txt, c, s_cache in ((128, 1024, 8192),
+        for t_txt, c, s_cache in ((128, q_cap, q_cache),
                                   (128, cap, 2 * grid * grid)):
             r = check_rows2(rng, 2, 24, t_txt, c, s_cache, iters=10,
                             bits=bits)
             ok &= r["ok"]
-            if s_cache == 2 * grid * grid:
-                results[{16: "attention_rows2", 8: "rows2_int8",
-                         4: "rows2_int4"}[bits]] = r
-    # ragged K2: 4219 fresh rows (not a multiple of 128) over 8192, B 1
-    r = check_rows2(rng, 1, 24, 128, 4096 - 5, 8192, iters=10)
-    ok &= r["ok"]
-    for bits in (8, 4):
-        r = check_attention_quant(rng, 2, 24, s_main, s_main, bits, iters=5)
+            if bits == 16 and s_cache == 2 * grid * grid:
+                results["attention_rows2"] = r
+            elif bits != 16 and s_cache == q_cache:
+                results[f"rows2_int{bits}"] = r
+    # ragged K2: 4219 fresh rows (not a multiple of 128) over 8192, B 1;
+    # ragged int4 K2q: 1147 fresh rows over 8064 (4032 packed rows, each
+    # nibble half ending mid-tile), B 1
+    for c, s_cache, bits in ((4096 - 5, 8192, 16), (1019, 8064, 4)):
+        r = check_rows2(rng, 1, 24, 128, c, s_cache, iters=10, bits=bits)
         ok &= r["ok"]
-        results[f"attention_quant_int{bits}"] = r
+    # K6 at S 2176 (int4: 1088 packed rows, the nibble seam mid-tile), then
+    # a ragged int4 one, B 1
+    for b, t, s, bits in ((2, s_main, s_main, 8), (2, s_main, s_main, 4),
+                          (1, 1147, 4350, 4)):
+        r = check_attention_quant(rng, b, 24, t, s, bits, iters=5)
+        ok &= r["ok"]
+        if b == 2:
+            results[f"attention_quant_int{bits}"] = r
     for g in (64, 32):
         r = check_partition(rng, g, 64, iters=20)
         ok &= r["ok"]
@@ -546,7 +561,8 @@ def card_vs_cpu(label, cfg, pipe_cls, re, grid, t_txt, forced,
     if cfg.connector is not None:
         card_cfg = dataclasses.replace(card_cfg, connector=dataclasses.replace(
             cfg.connector, dtype=torch.bfloat16))
-    ref_model = init_params(cfg, torch.Generator().manual_seed(1))
+    ref_model = init_params(cfg, torch.Generator().manual_seed(1),
+                            device="cpu")
     card_model = MMDiT(card_cfg, torch.device(DEVICE)).eval()
     card_model.load_state_dict(ref_model.state_dict())
     s = grid * grid
@@ -822,11 +838,14 @@ def phase_slice(grid):
 def phase_qwen_slice(grid, preset="qwen-image-edit"):
     """Qwen-Image-Edit at full width and depth on the card, random bf16
     weights, batch-2 CFG at scale 4 with the norm-preserving combine, the
-    Qwen knobs: the dense and the int8-cache RegionE edit of two requests;
-    then the second request's RegionE edit with the int8, the int4 and the
-    bf16 cache in turns, twice, on the same weights (only the config's
-    cache flags change).  Returns {cache format: launch counts} and the
-    int8 pipeline's (pipe, ctx, lat0) for the profile."""
+    Qwen knobs, at grid `grid` (64: the native 1024 x 1024): one request,
+    its dense edit, the int8-cache RegionE edit twice (warm, then timed),
+    then the int4- and the bf16-cache RegionE edits on the same weights and
+    request (only the config's cache flags change); the profiles of the
+    dense and the int8 RegionE edit, and of the bf16 RegionE edit (the
+    control for the quantized formats); then the RAGS kernels at this
+    path's shape.  Returns {cache format: launch counts}, the model (int8
+    cache) and the kernels' records at this path's shape."""
     import torch
     from regione_tpu_torch.core.config import DEFAULT_PARAMS
     from regione_tpu_torch.models.presets import get_config
@@ -851,52 +870,61 @@ def phase_qwen_slice(grid, preset="qwen-image-edit"):
         (2, T_TXT, cfg.txt_in_dim), np.float32)).to(dev, cfg.dtype)
     sampler = pipe.sampler_for(grid, grid, T_TXT, 2)
     shape = (1, grid * grid, cfg.out_channels)
-    counts, outs = {}, {}
-    for req, seed in enumerate((120, 121)):
-        label = f"qwen request {req}"
-        r, lat0 = _request(cfg, seed, grid)
-        cond = structured_condition(pipe, sampler, re, grid, txt, None, rope,
-                                    lat0, r, label)
-        ctx = _ctx(txt, None, cond, rope)
-        dense, _, dense_s, dense_counts, _ = timed_edit(pipe, lat0, ctx, grid,
-                                                        dense_only=True)
-        out, stats, regione_s, c, peak = timed_edit(pipe, lat0, ctx, grid)
-        log(f"{label}: dense launches {dense_counts}")
-        log(f"{label}: RegionE int8-cache launches {c}")
-        log(f"{label}: dense_s {dense_s:.3f} regione_s {regione_s:.3f} "
-            f"speedup {dense_s / regione_s:.3f}x, int8 cache, peak device "
-            f"memory {peak:.1f} GiB")
-        check_edit(f"{label} int8", out, stats, c, dense, shape, "int8")
-        counts["int8"], outs["int8"] = c, out
-    # request 1 again with each cache format, in turns, twice: one edit a
-    # format is within the run-to-run spread of a host-bound RegionE edit
-    formats = {"int8": {}, "int4": dict(cache_int8=False, cache_int4=True),
-               "bf16": dict(cache_int8=False)}
-    secs = {name: [] for name in formats}
-    for rnd in range(2):
-        for name, flags in formats.items():
-            model.cfg = dataclasses.replace(cfg, **flags)
-            pipe_f = QwenImageEditPipeline(model, re)
-            out, stats, sec, c, peak = timed_edit(pipe_f, lat0, ctx, grid)
-            label = f"qwen request 1, {name} cache, round {rnd}"
-            log(f"{label}: launches {c}")
-            log(f"{label}: regione_s {sec:.3f} speedup {dense_s / sec:.3f}x, "
-                f"peak device memory {peak:.1f} GiB")
-            check_edit(label, out, stats, c, dense, shape, name)
-            counts[name], outs[name] = c, out
-            secs[name].append(sec)
+    label = f"qwen grid {grid}"
+    r, lat0 = _request(cfg, 121, grid)
+    cond = structured_condition(pipe, sampler, re, grid, txt, None, rope,
+                                lat0, r, label)
+    ctx = _ctx(txt, None, cond, rope)
+    dense, _, dense_s, dense_counts, dense_peak = timed_edit(
+        pipe, lat0, ctx, grid, dense_only=True)
+    log(f"{label}: dense_s {dense_s:.3f}, launches {dense_counts}, peak "
+        f"device memory {dense_peak:.1f} GiB")
+    formats = (("int8 warm", {}), ("int8", {}),
+               ("int4", dict(cache_int8=False, cache_int4=True)),
+               ("bf16", dict(cache_int8=False)))
+    counts, outs, secs = {}, {}, {}
+    for name, flags in formats:
+        model.cfg = dataclasses.replace(cfg, **flags)
+        out, stats, sec, c, peak = timed_edit(
+            QwenImageEditPipeline(model, re), lat0, ctx, grid)
+        fmt = name.split()[0]
+        log(f"{label}, {name} cache: launches {c}")
+        log(f"{label}, {name} cache: regione_s {sec:.3f} speedup "
+            f"{dense_s / sec:.3f}x, K2q launches "
+            f"{c['attention_rows2_quant']}, K2 launches "
+            f"{c['attention_rows2']}, peak device memory {peak:.1f} GiB")
+        check_edit(f"{label}, {name} cache", out, stats, c, dense, shape, fmt)
+        counts[fmt], outs[fmt], secs[name] = c, out, sec
     model.cfg = cfg
-    log("qwen request 1, regione_s by cache format, rounds 0 / 1: " + ", ".join(
-        f"{n} {s[0]:.3f} / {s[1]:.3f}" for n, s in secs.items()))
-    log(f"qwen request 1, cache formats against the bf16 cache: int8 "
+    log(f"{label}: regione_s by cache format: " + ", ".join(
+        f"{n} {sec:.3f}" for n, sec in secs.items())
+        + f"; int8 - bf16 {secs['int8'] - secs['bf16']:+.3f} s, int4 - bf16 "
+        f"{secs['int4'] - secs['bf16']:+.3f} s")
+    log(f"{label}, cache formats against the bf16 cache: int8 "
         f"{psnr(outs['bf16'], outs['int8']):.2f} dB, int4 "
         f"{psnr(outs['bf16'], outs['int4']):.2f} dB latent PSNR")
-    return counts, (pipe, ctx, lat0)
+    phase_profile(f"{label} int8", pipe, ctx, lat0, grid)
+    model.cfg = dataclasses.replace(cfg, cache_int8=False)
+    phase_profile(f"{label} bf16", QwenImageEditPipeline(model, re), ctx,
+                  lat0, grid, modes=(False,))
+    model.cfg = cfg
+    del pipe, ctx, lat0
+    release()
+    # K2q and K2 at this path's shape: t_txt + capacity fresh rows over the
+    # 2 * grid^2-row cache, batch 2, the model's heads
+    krng = np.random.default_rng(8)
+    checks = {key: check_rows2(krng, 2, cfg.heads, T_TXT, stats.capacity,
+                               2 * grid * grid, iters=10, bits=bits)
+              for key, bits in (("rows2_int8", 8), ("rows2_int4", 4),
+                                ("qwen_rows2_bf16", 16))}
+    if not all(r["ok"] for r in checks.values()):
+        fail("a kernel disagrees with its plain version at the Qwen shapes")
+    return counts, model, checks
 
 
 def _kernel_group(name: str) -> str:
     n = name.lower()
-    if "attention_kernel" in n or "attention_tma_kernel" in n:
+    if "attention_tma_kernel" in n:
         return "attention K1/K2/K2q"
     if "partition_kernel" in n:
         return "partition K3"
@@ -905,10 +933,11 @@ def _kernel_group(name: str) -> str:
     return "other (norms, RoPE, elementwise, copies)"
 
 
-def phase_profile(name, pipe, ctx, lat0, grid):
+def phase_profile(name, pipe, ctx, lat0, grid, modes=(True, False)):
     """Device time by kernel group over one dense and one RegionE edit
-    (torch.profiler's CUDA trace), and the device's idle share: 1 - kernel
-    time / host wall time of the edit (one stream, kernels never overlap)."""
+    (`modes`: dense_only of each edit profiled; torch.profiler's CUDA
+    trace), and the device's idle share: 1 - kernel time / host wall time
+    of the edit (one stream, kernels never overlap)."""
     import os
 
     import torch
@@ -917,7 +946,7 @@ def phase_profile(name, pipe, ctx, lat0, grid):
     from regione_tpu_torch.ops._build import BUILD_DIR
     trace_dir = BUILD_DIR.parent / "profile"     # inside the checkout
     trace_dir.mkdir(parents=True, exist_ok=True)
-    for dense_only in (True, False):
+    for dense_only in modes:
         label = f"{name} {'dense' if dense_only else 'RegionE'}"
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1016,7 +1045,8 @@ def phase_vae_card_vs_cpu(sizes=(("AutoencoderKL", 1024), ("Wan", 512)),
     ok = True
     for family, size in sizes:
         cfg = cfgs[family]
-        cpu = init_vae_params(cfg, torch.Generator().manual_seed(3))
+        cpu = init_vae_params(cfg, torch.Generator().manual_seed(3),
+                              device="cpu")
         card = vae_module(cfg)(cfg, torch.device(DEVICE)).eval()
         card.load_state_dict(cpu.state_dict())
         n = sum(p.numel() for p in cpu.parameters())
@@ -1242,25 +1272,24 @@ def phase_flux_image(preset="flux-kontext", vae_cfg=None, size=900):
     return counts, cli_counts, checks
 
 
-SRC = "regione_tpu_torch/csrc/attention.cu"
-SRC_TMA = "regione_tpu_torch/csrc/attention_tma.cu"
+SRC = "regione_tpu_torch/csrc/attention_tma.cu"
 JAX_FA = "regione_tpu/ops/flash_attention.py"
 # record key -> (name, source, TPU kernel replaced, the path whose launch
 # count the record carries, the counter)
 KERNELS = {
-    "attention": ("K1 attention", SRC_TMA, f"{JAX_FA}:69", "flux_image",
+    "attention": ("K1 attention", SRC, f"{JAX_FA}:69", "flux_image",
                   "attention"),
-    "attention_rows2": ("K2 attention_rows2 (bf16 cache)", SRC_TMA,
+    "attention_rows2": ("K2 attention_rows2 (bf16 cache)", SRC,
                         f"{JAX_FA}:357", "flux_image", "attention_rows2"),
     "rows2_int8": ("K2q attention_rows2_quant (int8 cache)", SRC,
-                   f"{JAX_FA}:357", "qwen_image", "attention_rows2_quant"),
+                   f"{JAX_FA}:357", "qwen_int8", "attention_rows2_quant"),
     "rows2_int4": ("K2q attention_rows2_quant (int4 cache)", SRC,
                    f"{JAX_FA}:357", "qwen_int4", "attention_rows2_quant"),
     "fused_partition": ("K3 fused_partition",
                         "regione_tpu_torch/csrc/partition.cu",
                         "regione_tpu/ops/partition_kernel.py:30", "flux_image",
                         "fused_partition"),
-    "attention_long": ("K5 attention past 12,288 keys", SRC_TMA,
+    "attention_long": ("K5 attention past 12,288 keys", SRC,
                        f"{JAX_FA}:157", "plus", "attention_long"),
     "attention_quant_int8": ("K6 attention_quant (int8)", SRC,
                              f"{JAX_FA}:133", "quant_int8",
@@ -1281,8 +1310,8 @@ def main():
     phase_build()
     log(f"phase build done in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    grid = 32
-    checks = phase_kernels(grid)
+    grid, qwen_grid = 32, 64
+    checks = phase_kernels(grid, qwen_grid)
     log(f"phase kernels done in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     paths = phase_small_reference()
@@ -1297,11 +1326,9 @@ def main():
     release()
     log(f"phase slice (step1x-edit) done in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    qwen, (pipe, ctx, lat0) = phase_qwen_slice(grid)
+    qwen, model, qwen_checks = phase_qwen_slice(qwen_grid)
     paths.update({f"qwen_{k}": v for k, v in qwen.items()})
-    phase_profile("qwen int8", pipe, ctx, lat0, grid)
-    model = pipe.model
-    del pipe, ctx, lat0
+    checks.update(qwen_checks)
     release()
     log(f"phase slice (qwen-image-edit) done in "
         f"{time.perf_counter() - t:.1f}s")

@@ -1,10 +1,9 @@
-// Non-causal attention over one or two bf16 KV segments, built for Hopper:
-// TMA loads into a ring of shared-memory stages, wgmma for both products,
-// one producer warpgroup and two consumer warpgroups.
+// Non-causal attention over one or two KV segments, built for Hopper: TMA
+// loads into a ring of shared-memory stages, wgmma for both products, one
+// producer warpgroup and two consumer warpgroups.  The second segment is
+// stored as bf16, int8 or int4 (the kernel's template argument).
 //
-// Replaces the bf16 launches of these Pallas TPU kernels of
-// regione_tpu/ops/flash_attention.py (csrc/attention.cu keeps the
-// quantized-cache ones, K2q and K6):
+// Replaces these Pallas TPU kernels of regione_tpu/ops/flash_attention.py:
 //   K1 `_kv_resident_kernel` (via `flash_attention`): dense and write steps,
 //      one KV segment [B, H, S, D];
 //   K5 `_flash_kernel` (the same call past the resident budget, S > 12,288
@@ -12,7 +11,12 @@
 //   K2 `_rows2_resident_kernel` with a bf16 cache (via
 //      `flash_attention_rows2`): RAGS steps, fresh rows [B, H, S1, D]
 //      followed by the frozen cache [B, H, S2, D], one softmax over both,
-//      the cache read in place (no concatenation).
+//      the cache read in place (no concatenation);
+//   K2q the same kernel with an int8 or int4 cache (`_dequant_into`,
+//      `_unpack4_f32`), and K6 `_kv_resident_q8_kernel` (a quantized K/V
+//      alone: S1 = 0).  The Pallas kernels dequantize a head's cache into
+//      VMEM once and never write a bf16 copy to HBM; here the HBM reads stay
+//      int8 / int4 too, and the dequantized tiles live only in shared memory.
 //
 // What it computes, per (b, h): out = softmax(q k^T / sqrt(D) + bias) v over
 // [k1/v1 rows ‖ k2/v2 rows], with the logits and the softmax in fp32, P cast
@@ -22,15 +26,26 @@
 // any (b, h, row) strided views with a dense last dim (the model's
 // `split_heads` views as they are).
 //
-// What bounds it on an H100: at the main path's shapes (T = S = 2176..12416,
-// D = 128) attention is compute bound, 4*T*S*D flops against
-// 2*(T+S)*D*2 bytes per (b, h); the bf16 tensor cores (989 TFLOP/s dense)
-// are reached only through wgmma fed from shared memory.  The design:
+// A quantized second segment holds S2 logical rows with fp32 row scales
+// [B, H, S2] (row-dense).  int8: one code per value.  int4 (ops/quant.py
+// S-halves packing): S2/2 stored rows, row j < S2/2 in the low nibble of
+// stored row j, row j >= S2/2 in the high nibble of stored row j - S2/2.
+// Dequantization is code -> fp32 (exact), times the row's scale in fp32, one
+// rounding to bf16, as the plain `dequantize_kv_heads*` do, so the K/V that
+// enter the wgmma are bit-equal to the plain version's.
+//
+// What bounds it on an H100: at the main path's shapes (T = 1152..12416,
+// S = 2176..12416, D = 128) attention is compute bound, 4*T*S*D flops
+// against 2*(T+S)*D*2 bytes per (b, h) (fewer for a quantized cache); the
+// bf16 tensor cores (989 TFLOP/s dense) are reached only through wgmma fed
+// from shared memory.  The design:
 //   * a CTA owns 128 query rows of one (b, h) (grid ceil(T/128) x H x B):
 //     384 threads, warpgroups 0 and 1 consume (64 query rows each),
 //     warpgroup 2 produces; `setmaxnreg` moves registers from the producer
-//     (40) to the consumers (232), which hold the S and O accumulators
-//     (64 + 64 fp32) and P (32 bf16x2) in registers;
+//     (40; 80-88 where it dequantizes) to the consumers (232; 200-208),
+//     which hold the S and O accumulators (64 + 64 fp32) and P (32 bf16x2)
+//     in registers (ptxas compiles every region within the launch bound's
+//     168: the consumers need no more);
 //   * one thread of the producer issues TMA loads: Q once (128 x 128 bf16),
 //     then K and V tiles of 128 keys into a ring of two stages, each stage
 //     released by the consumers through an mbarrier, so copies overlap the
@@ -38,29 +53,49 @@
 //     128 x 128 tile is two 128 x 64 boxes.  A second producer warp writes
 //     the tile's 128 bias columns into the stage, times log2(e), with the
 //     columns past the segment's end at -inf, so the consumers read one
-//     shared row instead of 32 global values a thread and mask nothing.
-//     Smem: 32 KB Q + 2 x (64 KB + 512 B);
+//     shared row instead of 32 global values a thread and mask nothing;
+//   * a quantized tile goes through a staging ring instead: its raw codes
+//     (128 rows x 128 bytes, one box, no swizzle), K then V, are TMA-loaded
+//     into a ring of three 16 KB slots, each released on its own; the
+//     whole producer warpgroup (128 threads, one of which also issues the
+//     TMA loads) dequantizes them and stores the bf16 values into the same
+//     swizzled stage TMA fills for bf16 tiles, then arrives on the stage's
+//     "full" barrier (in these modes it takes all 128 writers' arrivals,
+//     one of which carries TMA's byte count when the tile is bf16), so the
+//     consumers run the bf16 code unchanged.  The tile's fp32 row scales go
+//     through shared memory, loaded a tile ahead.  Codes become floats by
+//     the exponent trick (a byte placed under the exponent of 2^23, minus
+//     2^23 + its bias: exact), not by I2F, which runs at a quarter of the
+//     rate of the fp32 pipes on sm_90.  At 1152 fresh + 8192 cache rows the
+//     dequant, not the tensor cores, sets the pace (with it skipped the
+//     launch takes the bf16 kernel's time), and what holds it back is the
+//     writers' stalls, not their arithmetic;
 //   * S = Q K^T: wgmma m64n128k16, A (Q) and B (K) from shared memory, both
 //     K-major; O += P V: wgmma m64n128k16 with P in registers (the S
 //     accumulator packed into bf16 A fragments) and V as an MN-major B
 //     operand (the transpose bit bf16 allows), so V needs no transpose;
-//   * two segments are walked one after the other (ceil(S1/128) tiles, then
-//     ceil(S2/128)), each tile from its own tensor map with its own strides
-//     and row extent, so no tile straddles the seam; TMA zero-fills rows past
-//     a segment's end and their logits are masked to -inf before the max.
+//   * the segments are walked one after the other (ceil(S1/128) tiles, then
+//     the second segment's), each tile from its own tensor map with its own
+//     strides and row extent, so no tile straddles the seam; an int4
+//     segment is walked as two sub-segments of S2/2 rows over the one packed
+//     map (low nibbles, then high nibbles), so no tile straddles row S2/2
+//     either.  TMA zero-fills rows past a segment's end and their logits are
+//     masked to -inf before the max.
 // Two consumer warpgroups work on the same tiles independently, so one's
 // softmax overlaps the other's products; an explicit ping-pong (FA3), a
 // persistent scheduler and split-KV for small T are later work.
 //
-// Numerics kept from csrc/attention.cu: the running max starts at -1e30 (a
-// tile whose keys are all masked gives no NaN), the online softmax runs in
-// fp32 (in base 2, log2(e) folded into the scale and the bias), P is not
-// normalised before its bf16 cast, and the output is normalised once.
+// Numerics: the running max starts at -1e30 (a tile whose keys are all
+// masked gives no NaN), the online softmax runs in fp32 (in base 2, log2(e)
+// folded into the scale and the bias), P is not normalised before its bf16
+// cast, and the output is normalised once.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -70,23 +105,90 @@ constexpr int kBK = 128;       // keys per tile
 constexpr int kStages = 2;     // K/V ring depth
 constexpr int kThreads = 384;  // consumers: warpgroups 0, 1; producer: 2
 constexpr int kConsumers = 256;
+constexpr int kWriters = 128;  // the producer warpgroup (quantized modes)
 constexpr int kBox = 64;                         // bf16 columns per TMA box
 constexpr int kHalfBytes = kBQ * kBox * 2;       // one 128 x 64 box: 16 KB
 constexpr int kTileBytes = 2 * kHalfBytes;       // a 128 x 128 tile: 32 KB
+constexpr int kCodeBytes = kBK * kD;             // 128 x 128 codes: 16 KB
 constexpr int kSmemK = kTileBytes;               // after Q
 constexpr int kSmemV = kSmemK + kStages * kTileBytes;
-constexpr int kSmemBias = kSmemV + kStages * kTileBytes;  // fp32 [stage][BK]
-constexpr int kSmemBar = kSmemBias + kStages * kBK * 4;
-// q, full_k[s], full_v[s], full_bias[s], empty[s]
-constexpr int kNumBars = 1 + 4 * kStages;
-// + barriers + slack to align the base to the 1024-byte swizzle atom
-constexpr int kSmemBytes = kSmemBar + 8 * kNumBars + 1024;
+constexpr int kSmemCodes = kSmemV + kStages * kTileBytes;  // code ring
+constexpr int kCodeSlots = 3;  // K, V, K, V, ... code tiles in turn
+// q, full_k[s], full_v[s], full_bias[s], empty[s], code_full[slot],
+// code_empty[slot]
+constexpr int kNumBars = 1 + 4 * kStages + 2 * kCodeSlots;
+
+// storage of the second segment's rows (mode2)
+constexpr int kBf16 = 0;
+constexpr int kInt8 = 1;
+constexpr int kInt4 = 2;  // S-halves nibble packing, S2 / 2 stored rows
+
+// the softmax runs in base 2: x = (s * scale + bias) * log2(e), where
+// s * scale * log2(e) + bias * log2(e) is one fma, and p = 2^(x - m).  A
+// key at bias -1e30 gives x == -1e30 * log2(e), the running max's start,
+// exactly, so a tile masked whole gives p = 1 and no NaN
+constexpr float kLog2e = 1.4426950408889634f;
+
+// shared-memory layout of one instantiation: a quantized mode adds the
+// ring of 16 KB code slots and two buffers of a tile's K and V row scales
+// (fp32 [2][2 * BK]) before the bias
+template <int Mode>
+struct Smem {
+  static constexpr int kScales = kSmemCodes + kCodeSlots * kCodeBytes;
+  static constexpr int kBias =
+      Mode == kBf16 ? kSmemCodes : kScales + 2 * 2 * kBK * 4;
+  static constexpr int kBar = kBias + kStages * kBK * 4;  // fp32 [stage][BK]
+  // + barriers + slack to align the base to the 1024-byte swizzle atom
+  static constexpr int kBytes = kBar + 8 * kNumBars + 1024;
+};
 
 struct TmaParams {
   const float* bias;   // [B, S1 + S2] or null
+  const float* ks2;    // [B, H, S2] row scales of a quantized segment
+  const float* vs2;
+  long long ks_s[2], vs_s[2];  // their (b, h) element strides
   __nv_bfloat16* out;  // [B, T, H * D]
   int H, T, S1, S2;
   float scale;
+};
+
+// Tile `it` of the walk: the bf16 fresh rows, then the second segment (an
+// int4 one as two sub-segments of S2/2 rows: low nibbles, then high).
+struct Tile {
+  bool fresh;  // a tile of the first segment
+  bool high;   // int4: the high-nibble sub-segment
+  int j0;      // first row in its tensor map
+  int valid;   // rows of the tile inside its (sub-)segment
+  int key;     // first logical key: its bias column
+};
+
+template <int Mode>
+struct Walk {
+  int n1, rows2, n2h, n_tiles;
+  __device__ __forceinline__ explicit Walk(const TmaParams& p) {
+    n1 = (p.S1 + kBK - 1) / kBK;
+    rows2 = Mode == kInt4 ? p.S2 / 2 : p.S2;
+    n2h = (rows2 + kBK - 1) / kBK;
+    n_tiles = n1 + (Mode == kInt4 ? 2 * n2h : n2h);
+  }
+  __device__ __forceinline__ Tile at(int it, const TmaParams& p) const {
+    Tile t;
+    t.fresh = it < n1;
+    if (t.fresh) {
+      t.high = false;
+      t.j0 = it * kBK;
+      t.valid = p.S1 - t.j0;
+      t.key = t.j0;
+      return t;
+    }
+    int k = it - n1;
+    t.high = Mode == kInt4 && k >= n2h;
+    if (t.high) k -= n2h;
+    t.j0 = k * kBK;
+    t.valid = rows2 - t.j0;
+    t.key = p.S1 + (t.high ? rows2 : 0) + t.j0;
+    return t;
+  }
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -225,6 +327,140 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Sixteen int8 codes (int4: the low or high nibbles of sixteen packed
+// bytes) -> sixteen bf16 values code * scale in out[0..7] (column order,
+// two a word).  A code c is made unsigned (c + 128, or c + 8 for a nibble)
+// by flipping its sign bit, placed as the low byte of the fp32 2^23 + u
+// (exact) and 2^23 + 128 (+ 8) taken off: c as fp32, exactly.  Then one
+// fp32 product and one rounding to bf16, as the plain version computes.
+template <int Mode>
+__device__ __forceinline__ void dequant16(uint4 w, float sc, bool high,
+                                          uint32_t (&out)[8]) {
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+  const float bias = Mode == kInt8 ? 8388736.f : 8388616.f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t u;
+    if (Mode == kInt8) {
+      u = words[q] ^ 0x80808080u;
+    } else {
+      const uint32_t x = words[q] ^ 0x88888888u;
+      u = (high ? x >> 4 : x) & 0x0F0F0F0Fu;
+    }
+    float f[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float c =
+          __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u + e)) - bias;
+      f[e] = __fmul_rn(c, sc);  // never fused into a neighbour
+    }
+    out[2 * q] = pack_bf16(f[0], f[1]);
+    out[2 * q + 1] = pack_bf16(f[2], f[3]);
+  }
+}
+
+// One staged 128 x 128 code tile -> the bf16 stage, in the layout TMA
+// writes under the 128-byte swizzle: column halves [0, 64) and [64, 128)
+// 16 KB apart, 16-byte chunk c of row r at chunk c ^ (r & 7).  `scale`:
+// the tile's 128 row scales in shared memory (0 past the segment's end,
+// where TMA filled zero codes).  Thread `wt` of kWriters takes 16 codes
+// (one 16-byte chunk c) of rows r0, r0 + 16, ..., r0 + 112: eight
+// neighbouring threads take chunks 0-3 of one row and 4-7 of the next (or
+// the other way round), so their 16-byte reads of the codes and both of
+// their swizzled 16-byte stores fall on eight distinct bank groups.  A
+// thread's rows differ by multiples of 8, so its swizzle is fixed and every
+// address is one base plus a constant; the codes and scales of a batch are
+// loaded before any is converted.
+template <int Mode>
+__device__ __forceinline__ void dequant_tile(const uint8_t* codes,
+                                             uint8_t* stage,
+                                             const float* scale, bool high,
+                                             int wt) {
+  constexpr int kIters = kBK * (kD / 16) / kWriters;  // chunks a thread
+  constexpr int kRowStep = kWriters / 8;              // rows between them
+  constexpr int kBatch = Mode == kInt8 ? 4 : 8;  // no spills at either
+  const int g = wt >> 3;
+  const int c = wt & 7;
+  const int r0 = 2 * (g >> 1) + ((c >> 2) ^ (g & 1));
+  const int q = (2 * c) & 7;
+  const uint8_t* src = codes + r0 * kD + c * 16;
+  const float* sc = scale + r0;
+  uint8_t* dst = stage + (c >> 2) * kHalfBytes + r0 * 128;
+  const int o0 = (q ^ (r0 & 7)) << 4;
+  const int o1 = ((q + 1) ^ (r0 & 7)) << 4;
+#pragma unroll
+  for (int m0 = 0; m0 < kIters; m0 += kBatch) {
+    uint4 w[kBatch];
+    float s[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      w[j] = *reinterpret_cast<const uint4*>(src + (m0 + j) * kRowStep * kD);
+      s[j] = sc[(m0 + j) * kRowStep];
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      uint32_t v[8];
+      dequant16<Mode>(w[j], s[j], high, v);
+      uint8_t* row = dst + (m0 + j) * kRowStep * 128;
+      *reinterpret_cast<uint4*>(row + o0) = make_uint4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<uint4*>(row + o1) = make_uint4(v[4], v[5], v[6], v[7]);
+    }
+  }
+}
+
+// make this thread's generic shared-memory stores visible to the async
+// proxy (wgmma reads its operands through it)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the kWriters dequantizing threads alone (named barrier 1)
+__device__ __forceinline__ void writers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kWriters) : "memory");
+}
+
+// Row wt's K and V scales of a quantized tile, 0 past the (sub-)segment's
+// end.
+__device__ __forceinline__ void load_scales(const float* krow,
+                                            const float* vrow,
+                                            const Tile& tl, int S1, int wt,
+                                            float& k, float& v) {
+  const bool in = wt < tl.valid;
+  k = in ? __ldg(krow + (tl.key - S1) + wt) : 0.f;
+  v = in ? __ldg(vrow + (tl.key - S1) + wt) : 0.f;
+}
+
+// Column c of a tile's staged bias: the bias times log2(e), 0 without a
+// bias, -inf past the segment's end.
+__device__ __forceinline__ float bias_col(const float* brow, const Tile& tl,
+                                          int c) {
+  if (c >= tl.valid) return -INFINITY;
+  return brow != nullptr ? brow[tl.key + c] * kLog2e : 0.f;
+}
+
+// Q (128 x 128 bf16, two boxes) of this CTA
+__device__ __forceinline__ void load_q(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int q0, int h, int b) {
+  mbar_expect_tx(bar, kTileBytes);
+  tma_load(dst, map, bar, 0, q0, h, b);
+  tma_load(dst + kHalfBytes, map, bar, kBox, q0, h, b);
+}
+
+// The bf16 K and V tiles of rows [j0, j0 + 128) into a stage, two boxes
+// each, each completing its own barrier.
+__device__ __forceinline__ void load_kv(uint32_t dk, uint32_t dv,
+                                        const CUtensorMap* mk,
+                                        const CUtensorMap* mv, uint32_t bk,
+                                        uint32_t bv, int j0, int h, int b) {
+  mbar_expect_tx(bk, kTileBytes);
+  tma_load(dk, mk, bk, 0, j0, h, b);
+  tma_load(dk + kHalfBytes, mk, bk, kBox, j0, h, b);
+  mbar_expect_tx(bv, kTileBytes);
+  tma_load(dv, mv, bv, 0, j0, h, b);
+  tma_load(dv + kHalfBytes, mv, bv, kBox, j0, h, b);
+}
+
+template <int Mode>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk1,
@@ -232,42 +468,47 @@ attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk2,
                      const __grid_constant__ CUtensorMap tv2,
                      const __grid_constant__ TmaParams p) {
+  constexpr bool kQuant = Mode != kBf16;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - smem_u32(smem_raw));
   const uint32_t sq = base;
   const uint32_t sk = base + kSmemK;
   const uint32_t sv = base + kSmemV;
-  const uint32_t bar_q = base + kSmemBar;
+  const uint32_t scodes = base + kSmemCodes;  // code ring (quantized)
+  const uint32_t bar_q = base + Smem<Mode>::kBar;
   const uint32_t bar_k = bar_q + 8;                 // full_k[s]
   const uint32_t bar_v = bar_k + 8 * kStages;       // full_v[s]
   const uint32_t bar_b = bar_v + 8 * kStages;       // full_bias[s]
   const uint32_t bar_e = bar_b + 8 * kStages;       // empty[s]
+  const uint32_t bar_cf = bar_e + 8 * kStages;      // code_full[slot]
+  const uint32_t bar_ce = bar_cf + 8 * kCodeSlots;  // code_empty[slot]
   // the bias stages through a generic pointer (plain loads and stores)
-  float* const sbias = reinterpret_cast<float*>(
-      smem_raw + (base - smem_u32(smem_raw)) + kSmemBias);
-  // the softmax runs in base 2: x = (s * scale + bias) * log2(e), where
-  // s * scale * log2(e) + bias * log2(e) is one fma, and p = 2^(x - m).
-  // A key at bias -1e30 gives x == -1e30 * log2(e), the running max's
-  // start, exactly, so a tile masked whole gives p = 1 and no NaN (as the
-  // natural-base kernel in csrc/attention.cu does)
-  const float kLog2e = 1.4426950408889634f;
+  float* const sbias = reinterpret_cast<float*>(gbase + Smem<Mode>::kBias);
 
   const int tid = threadIdx.x;
   const int wg = tid / 128;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * kBQ;
-  const int n1 = (p.S1 + kBK - 1) / kBK;
-  const int n_tiles = n1 + (p.S2 + kBK - 1) / kBK;
+  const Walk<Mode> walk(p);
+  const int n1 = walk.n1;
+  const int n_tiles = walk.n_tiles;
 
   if (tid == 0) {
     mbar_init(bar_q, 1);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(bar_k + 8 * s, 1);
-      mbar_init(bar_v + 8 * s, 1);
-      mbar_init(bar_b + 8 * s, 32);
+      // a quantized mode's stages are full once every writer has arrived
+      // (and, for a bf16 tile, TMA's bytes have landed)
+      mbar_init(bar_k + 8 * s, kQuant ? kWriters : 1);
+      mbar_init(bar_v + 8 * s, kQuant ? kWriters : 1);
+      mbar_init(bar_b + 8 * s, kQuant ? kWriters : 32);
       mbar_init(bar_e + 8 * s, kConsumers);
+    }
+    for (int c = 0; c < kCodeSlots; ++c) {
+      mbar_init(bar_cf + 8 * c, 1);
+      mbar_init(bar_ce + 8 * c, kWriters);
     }
     // make the initialised barriers visible to the async (TMA) proxy
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -276,55 +517,119 @@ attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   if (wg == 2) {
-    // ---- producer: one thread keeps the TMA loads in flight, one warp
-    // stages the bias ---------------------------------------------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     const int ptid = tid - 2 * 128;
-    if (ptid >= 32 && ptid < 64) {
-      const int lane = ptid - 32;
-      const float* brow =
-          p.bias ? p.bias + static_cast<long long>(b) * (p.S1 + p.S2)
-                 : nullptr;
-      for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kStages;
-        mbar_wait(bar_e + 8 * s, ((it / kStages) & 1) ^ 1);
-        const bool seg1 = it < n1;
-        const int j0 = (seg1 ? it : it - n1) * kBK;
-        const int valid = (seg1 ? p.S1 : p.S2) - j0;  // keys of the tile
-        const int boff = (seg1 ? 0 : p.S1) + j0;      // its bias column
+    const float* brow =
+        p.bias ? p.bias + static_cast<long long>(b) * (p.S1 + p.S2) : nullptr;
+    if constexpr (!kQuant) {
+      // ---- producer, bf16 K/V: one thread keeps the TMA loads in flight,
+      // warp 1 stages the bias --------------------------------------------
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+      if (ptid >= 32 && ptid < 64) {
+        for (int it = 0; it < n_tiles; ++it) {
+          const int s = it % kStages;
+          mbar_wait(bar_e + 8 * s, ((it / kStages) & 1) ^ 1);
+          const Tile tl = walk.at(it, p);
 #pragma unroll
-        for (int c = lane; c < kBK; c += 32) {
-          float x = -INFINITY;                        // past the segment
-          if (c < valid) x = brow != nullptr ? brow[boff + c] * kLog2e : 0.f;
-          sbias[s * kBK + c] = x;
+          for (int c = ptid - 32; c < kBK; c += 32)
+            sbias[s * kBK + c] = bias_col(brow, tl, c);
+          mbar_arrive(bar_b + 8 * s);  // release: the stores are visible
         }
-        mbar_arrive(bar_b + 8 * s);  // release: the stores are visible
+      } else if (ptid == 0) {
+        load_q(sq, &tq, bar_q, q0, h, b);
+        for (int it = 0; it < n_tiles; ++it) {
+          const int s = it % kStages;
+          const Tile tl = walk.at(it, p);
+          // round 0 passes at once: the ring starts empty
+          mbar_wait(bar_e + 8 * s, ((it / kStages) & 1) ^ 1);
+          load_kv(sk + s * kTileBytes, sv + s * kTileBytes,
+                  tl.fresh ? &tk1 : &tk2, tl.fresh ? &tv1 : &tv2,
+                  bar_k + 8 * s, bar_v + 8 * s, tl.j0, h, b);
+        }
       }
-    } else if (ptid == 0) {
-      mbar_expect_tx(bar_q, kTileBytes);
-      tma_load(sq, &tq, bar_q, 0, q0, h, b);
-      tma_load(sq + kHalfBytes, &tq, bar_q, kBox, q0, h, b);
+    } else {
+      // ---- producer, quantized second segment: all 128 threads stage the
+      // bias and dequantize; thread 0 also issues the TMA loads, each code
+      // tile's as soon as its ring slot is read ---------------------------
+      // (per mode: the budgets at which ptxas spills nothing)
+      if constexpr (Mode == kInt8)
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 88;\n");
+      else
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 80;\n");
+      const int wt = ptid;
+      const int n_codes = 2 * (n_tiles - n1);  // K, V per quantized tile
+      // code tile n (K of quantized tile n / 2, or its V) into slot
+      // n % kCodeSlots, once the slot's last round is read
+      auto load_codes = [&](int n) {
+        const int slot = n % kCodeSlots;
+        mbar_wait(bar_ce + 8 * slot, ((n / kCodeSlots) & 1) ^ 1);
+        mbar_expect_tx(bar_cf + 8 * slot, kCodeBytes);
+        tma_load(scodes + slot * kCodeBytes, (n & 1) ? &tv2 : &tk2,
+                 bar_cf + 8 * slot, 0, walk.at(n1 + n / 2, p).j0, h, b);
+      };
+      if (wt == 0) {
+        load_q(sq, &tq, bar_q, q0, h, b);
+        for (int n = 0; n < kCodeSlots && n < n_codes; ++n) load_codes(n);
+      }
+      // the row scales go through shared memory, each quantized tile's
+      // loaded while the one before is dequantized
+      const float* krow = p.ks2 + b * p.ks_s[0] + h * p.ks_s[1];
+      const float* vrow = p.vs2 + b * p.vs_s[0] + h * p.vs_s[1];
+      float* const sscale =
+          reinterpret_cast<float*>(gbase + Smem<Mode>::kScales);
+      float pre_k = 0.f, pre_v = 0.f;
+      if (n1 < n_tiles)
+        load_scales(krow, vrow, walk.at(n1, p), p.S1, wt, pre_k, pre_v);
+      // bias column wt, loaded a tile ahead too
+      float pre_b = bias_col(brow, walk.at(0, p), wt);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
-        // round 0 passes at once: the ring starts empty
         mbar_wait(bar_e + 8 * s, ((it / kStages) & 1) ^ 1);
-        const bool seg1 = it < n1;
-        const CUtensorMap* mk = seg1 ? &tk1 : &tk2;
-        const CUtensorMap* mv = seg1 ? &tv1 : &tv2;
-        const int j0 = (seg1 ? it : it - n1) * kBK;
-        const uint32_t dk = sk + s * kTileBytes;
-        const uint32_t dv = sv + s * kTileBytes;
-        mbar_expect_tx(bar_k + 8 * s, kTileBytes);
-        tma_load(dk, mk, bar_k + 8 * s, 0, j0, h, b);
-        tma_load(dk + kHalfBytes, mk, bar_k + 8 * s, kBox, j0, h, b);
-        mbar_expect_tx(bar_v + 8 * s, kTileBytes);
-        tma_load(dv, mv, bar_v + 8 * s, 0, j0, h, b);
-        tma_load(dv + kHalfBytes, mv, bar_v + 8 * s, kBox, j0, h, b);
+        const Tile tl = walk.at(it, p);
+        if (tl.fresh) {
+          // bf16 rows: thread 0's arrivals carry TMA's byte counts
+          if (wt == 0) {
+            load_kv(sk + s * kTileBytes, sv + s * kTileBytes, &tk1, &tv1,
+                    bar_k + 8 * s, bar_v + 8 * s, tl.j0, h, b);
+          } else {
+            mbar_arrive(bar_k + 8 * s);
+            mbar_arrive(bar_v + 8 * s);
+          }
+        }
+        sbias[s * kBK + wt] = pre_b;
+        mbar_arrive(bar_b + 8 * s);
+        if (it + 1 < n_tiles) pre_b = bias_col(brow, walk.at(it + 1, p), wt);
+        if (tl.fresh) continue;
+        // scale buffer (it - n1) & 1: its readers of two tiles ago are past
+        // the last tile's writers_sync
+        float* const ss = sscale + ((it - n1) & 1) * 2 * kBK;
+        ss[wt] = pre_k;
+        ss[kBK + wt] = pre_v;
+        if (it + 1 < n_tiles)
+          load_scales(krow, vrow, walk.at(it + 1, p), p.S1, wt, pre_k, pre_v);
+        writers_sync();
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          const int n = 2 * (it - n1) + kv;
+          const int slot = n % kCodeSlots;
+          mbar_wait(bar_cf + 8 * slot, (n / kCodeSlots) & 1);
+          dequant_tile<Mode>(gbase + kSmemCodes + slot * kCodeBytes,
+                             gbase + (kv ? kSmemV : kSmemK) + s * kTileBytes,
+                             ss + kv * kBK, tl.high, wt);
+          fence_proxy_async();       // before the consumers' wgmma read
+          mbar_arrive((kv ? bar_v : bar_k) + 8 * s);
+          mbar_arrive(bar_ce + 8 * slot);  // the codes are read
+          if (wt == 0 && n + kCodeSlots < n_codes) load_codes(n + kCodeSlots);
+        }
       }
     }
   } else {
     // ---- consumers: 64 query rows each ---------------------------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    if constexpr (Mode == kInt8)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n");
+    else if constexpr (Mode == kInt4)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 208;\n");
+    else
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int ctid = tid % 128;
     const int warp = ctid / 32;
     const int lane = ctid % 32;
@@ -474,15 +779,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A rank-4 (D, row, H, B) map of bf16 rows [B, H, rows, 128] with element
-// strides st = (b, h, row), boxes of 64 columns x 128 rows, 128-byte
-// swizzle; rows past `rows` read as zeros.  A zero stride (a size-1 dim,
-// never stepped over) becomes the packed one, which TMA accepts.
+// A rank-4 (D, row, H, B) map of rows [B, H, rows, 128] with element
+// strides st = (b, h, row); rows past `rows` read as zeros.  bf16 rows:
+// boxes of 64 columns x 128 rows, 128-byte swizzle.  int8 code rows
+// (`codes`): one box of 128 columns x 128 rows (128 bytes a row), no
+// swizzle.  A zero stride (a size-1 dim, never stepped over) becomes the
+// packed one, which TMA accepts.
 bool encode_rows(EncodeTiled fn, CUtensorMap* map, const void* ptr,
-                 const long long* st, int B, int H, int rows) {
-  const long long row_b = st[2] ? st[2] * 2 : kD * 2;
-  const long long h_b = st[1] ? st[1] * 2 : row_b * rows;
-  const long long b_b = st[0] ? st[0] * 2 : h_b * H;
+                 const long long* st, int B, int H, int rows, bool codes) {
+  const long long esize = codes ? 1 : 2;
+  const long long row_b = st[2] ? st[2] * esize : kD * esize;
+  const long long h_b = st[1] ? st[1] * esize : row_b * rows;
+  const long long b_b = st[0] ? st[0] * esize : h_b * H;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(H),
@@ -490,23 +798,84 @@ bool encode_rows(EncodeTiled fn, CUtensorMap* map, const void* ptr,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(row_b),
                                  static_cast<cuuint64_t>(h_b),
                                  static_cast<cuuint64_t>(b_b)};
-  const cuuint32_t box[4] = {kBox, kBK, 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(codes ? kD : kBox),
+                             kBK, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map,
+            codes ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            4, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            codes ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The dynamic shared-memory allowance of one instantiation, set once per
+// device and process (not at every launch).
+template <int Mode>
+cudaError_t allow_smem() {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(attention_tma_kernel<Mode>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Smem<Mode>::kBytes);
+  if (err == cudaSuccess && dev < kMaxDevices)
+    done[dev].store(true, std::memory_order_release);
+  return err;
+}
+
+template <int Mode>
+int launch(const void* q, const void* k1, const void* v1, const void* k2,
+           const void* v2, const TmaParams& p, const long long* strides,
+           int B, int T, cudaStream_t stream) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int H = p.H, S1 = p.S1;
+  const int rows2 = Mode == kInt4 ? p.S2 / 2 : p.S2;
+  CUtensorMap mq, mk1, mv1, mk2, mv2;
+  bool ok = encode_rows(fn, &mq, q, strides, B, H, T, false);
+  if (S1 > 0)
+    ok = ok && encode_rows(fn, &mk1, k1, strides + 3, B, H, S1, false) &&
+         encode_rows(fn, &mv1, v1, strides + 6, B, H, S1, false);
+  if (rows2 > 0)
+    ok = ok &&
+         encode_rows(fn, &mk2, k2, strides + 9, B, H, rows2, Mode != kBf16) &&
+         encode_rows(fn, &mv2, v2, strides + 12, B, H, rows2, Mode != kBf16);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  // an absent segment's maps are never read
+  if (S1 == 0) {
+    mk1 = mk2;
+    mv1 = mv2;
+  }
+  if (rows2 == 0) {
+    mk2 = mk1;
+    mv2 = mv1;
+  }
+  const cudaError_t err = allow_smem<Mode>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((T + kBQ - 1) / kBQ, H, B);
+  attention_tma_kernel<Mode><<<grid, kThreads, Smem<Mode>::kBytes, stream>>>(
+      mq, mk1, mv1, mk2, mv2, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The C signature of regione_attention_fwd (csrc/attention.cu), bf16 K/V
-// only: mode2 must be 0 (ks2 / vs2 unused), else cudaErrorInvalidValue.
-// strides: 19 element strides, (b, h, row) for q, k1, v1, k2, v2, then the
-// scales' (unused here).  S2 == 0 attends over k1/v1 alone (K1/K5), S1 == 0
-// over k2/v2 alone.  Builds the five tensor maps on the host, launches on
-// `stream`, allocates nothing, and returns cudaGetLastError() of the launch
-// (cudaErrorInvalidValue if a map is refused).
+// strides: 19 element strides, (b, h, row) for q, k1, v1, k2, v2, each in
+// its tensor's own dtype, then (b, h) for the scales ks2, vs2.  mode2: the
+// storage of k2/v2: 0 bf16 rows (ks2, vs2 unused), 1 int8 codes, 2 int4
+// S-halves packed (S2 / 2 stored rows, S2 even), with ks2/vs2 the fp32 row
+// scales [B, H, S2].  S2 == 0 attends over k1/v1 alone (K1/K5), S1 == 0
+// over k2/v2 alone (K6 in a quantized mode).  Builds the five tensor maps on
+// the host, launches on `stream`, allocates nothing, and returns
+// cudaGetLastError() of the launch (cudaErrorInvalidValue for arguments it
+// does not take or a map that is refused).
 extern "C" int regione_attention_tma_fwd(const void* q, const void* k1,
                                          const void* v1, const void* k2,
                                          const void* v2, const void* ks2,
@@ -515,46 +884,34 @@ extern "C" int regione_attention_tma_fwd(const void* q, const void* k1,
                                          int B, int H, int T, int S1, int S2,
                                          int mode2, float scale,
                                          void* stream) {
-  (void)ks2;
-  (void)vs2;
-  if (mode2 != 0 || B <= 0 || H <= 0 || T <= 0 || S1 < 0 || S2 < 0 ||
-      S1 + S2 <= 0)
+  if (mode2 < kBf16 || mode2 > kInt4 || B <= 0 || H <= 0 || T <= 0 ||
+      S1 < 0 || S2 < 0 || S1 + S2 <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap mq, mk1, mv1, mk2, mv2;
-  bool ok = encode_rows(fn, &mq, q, strides, B, H, T);
-  if (S1 > 0)
-    ok = ok && encode_rows(fn, &mk1, k1, strides + 3, B, H, S1) &&
-         encode_rows(fn, &mv1, v1, strides + 6, B, H, S1);
-  if (S2 > 0)
-    ok = ok && encode_rows(fn, &mk2, k2, strides + 9, B, H, S2) &&
-         encode_rows(fn, &mv2, v2, strides + 12, B, H, S2);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  // an absent segment's maps are never read
-  if (S1 == 0) {
-    mk1 = mk2;
-    mv1 = mv2;
-  }
-  if (S2 == 0) {
-    mk2 = mk1;
-    mv2 = mv1;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (mode2 != kBf16 &&
+      (S2 <= 0 || ks2 == nullptr || vs2 == nullptr ||
+       (mode2 == kInt4 && S2 % 2)))
+    return static_cast<int>(cudaErrorInvalidValue);
   TmaParams p;
   p.bias = static_cast<const float*>(bias);
+  p.ks2 = static_cast<const float*>(ks2);
+  p.vs2 = static_cast<const float*>(vs2);
+  for (int j = 0; j < 2; ++j) {
+    p.ks_s[j] = strides[15 + j];
+    p.vs_s[j] = strides[17 + j];
+  }
   p.out = static_cast<__nv_bfloat16*>(out);
   p.H = H;
   p.T = T;
   p.S1 = S1;
   p.S2 = S2;
   p.scale = scale;
-  dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  attention_tma_kernel<<<grid, kThreads, kSmemBytes,
-                         static_cast<cudaStream_t>(stream)>>>(mq, mk1, mv1,
-                                                              mk2, mv2, p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (mode2) {
+    case kInt8:
+      return launch<kInt8>(q, k1, v1, k2, v2, p, strides, B, T, st);
+    case kInt4:
+      return launch<kInt4>(q, k1, v1, k2, v2, p, strides, B, T, st);
+    default:
+      return launch<kBf16>(q, k1, v1, k2, v2, p, strides, B, T, st);
+  }
 }

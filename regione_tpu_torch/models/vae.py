@@ -248,7 +248,7 @@ class AutoencoderKL(nn.Module):
 
     encoder_cls, decoder_cls = Encoder, Decoder
 
-    def __init__(self, cfg: VAEConfig, device="cpu"):
+    def __init__(self, cfg: VAEConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
         self.encoder = self.encoder_cls(cfg, device)

@@ -38,7 +38,6 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (csrc/*.cu)
 _SIGNATURES = {
-    "regione_attention_fwd": [_P] * 10 + [_I] * 6 + [_F, _P],
     "regione_attention_tma_fwd": [_P] * 10 + [_I] * 6 + [_F, _P],
     "regione_partition_fwd": [_P, _P, _F, _I, _I, _I, _I, _P, _P],
 }

@@ -1,14 +1,13 @@
 """Attention for the RegionE shapes: dense (K1, K5), RAGS (K2, K2q) and a
 quantized K/V alone (K6).
 
-Every wrapper runs one hand-written CUDA kernel, chosen by how K/V are
-stored (a fixed rule, not a fallback): bf16 K/V (`attention`,
-`attention_rows2`) run `csrc/attention_tma.cu` (`regione_attention_tma_fwd`:
-TMA ring, wgmma, one producer and two consumer warpgroups); a quantized
-cache (`attention_rows2_quant`, `attention_quant`) runs `csrc/attention.cu`
-(`regione_attention_fwd`, which dequantizes in its tile load).  Both take
-the same C arguments.  They replace these Pallas TPU kernels of
-`regione_tpu/ops/flash_attention.py`:
+Every wrapper runs one hand-written CUDA kernel, `csrc/attention_tma.cu`
+(`regione_attention_tma_fwd`: TMA ring, wgmma, one producer and two
+consumer warpgroups), instantiated for how the second K/V segment is
+stored: bf16 (`attention`, `attention_rows2`), or an int8 / int4 cache
+(`attention_rows2_quant`, `attention_quant`), whose codes the producer
+warps dequantize into the same bf16 stage.  It replaces these Pallas TPU
+kernels of `regione_tpu/ops/flash_attention.py`:
 
   * `attention`  <- `_kv_resident_kernel` (K1, via `flash_attention`) and,
     past `RESIDENT_KEYS` keys, `_flash_kernel` (K5): q [B, H, T, D] over
@@ -17,7 +16,7 @@ the same C arguments.  They replace these Pallas TPU kernels of
     `flash_attention_rows2`): q over [fresh rows ‖ frozen cache], one
     softmax, the cache read in place with no concatenation;
   * `attention_rows2_quant`  <- the same kernel with an int8 or int4 cache
-    (K2q: `_dequant_into`, `_unpack4_f32`), dequantized inside the tile load;
+    (K2q: `_dequant_into`, `_unpack4_f32`), dequantized in shared memory;
   * `attention_quant`  <- `_kv_resident_q8_kernel` (K6, via
     `flash_attention(k_scale=...)`): q over a quantized K/V alone.
     `attention` and `attention_rows2` hand a call with scales to these two.
@@ -60,7 +59,7 @@ HEAD_DIM = 128
 # the JAX package's resident budget at its default block_q = 128
 # (4 * 128 * S <= 6 MiB of logits): past it `flash_attention` runs K5
 RESIDENT_KEYS = 12288
-# storage modes of the kernel's second segment (csrc/attention.cu)
+# storage modes of the kernel's second segment (csrc/attention_tma.cu)
 MODE_BF16, MODE_INT8, MODE_INT4 = 0, 1, 2
 
 
@@ -193,21 +192,18 @@ def _launch(q, k1, v1, k2, v2, bias, k_scale=None, v_scale=None):
         *(s for x in (q, k1_, v1_, k2_, v2_) for s in _strides(x)),
         *(s for sc in scales
           for s in (_strides(sc, 2) if sc is not None else (0, 0))))
-    # the storage mode picks the kernel: bf16 K/V the Hopper TMA/wgmma one,
-    # a quantized cache the one that dequantizes in its tile load
-    entry = ("regione_attention_tma_fwd" if mode == MODE_BF16
-             else "regione_attention_fwd")
+    # one entry for every storage mode: `mode` picks the instantiation
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(lib, entry)(
+        code = lib.regione_attention_tma_fwd(
             q.data_ptr(), k1_.data_ptr(), v1_.data_ptr(), k2_.data_ptr(),
             v2_.data_ptr(), *(sc.data_ptr() if sc is not None else None
                               for sc in scales),
             bias.data_ptr() if bias is not None else None,
             out.data_ptr(), strides, b, h, t, s1, s2, mode,
             1.0 / math.sqrt(d), stream)
-    _build.check(code, entry)
+    _build.check(code, "regione_attention_tma_fwd")
     return out
 
 

@@ -78,7 +78,7 @@ def _walk(tree, prefix=()):
             yield path, val
 
 
-def convert_params(params, device="cpu"):
+def convert_params(params, device="cuda"):
     """JAX param pytree -> ({torch param name: tensor}, consumed leaf paths
     in pytree order)."""
     state, consumed = {}, []
@@ -102,7 +102,7 @@ def convert_params(params, device="cpu"):
     return state, consumed
 
 
-def mmdit_from_jax(params, cfg: MMDiTConfig, device="cpu") -> MMDiT:
+def mmdit_from_jax(params, cfg: MMDiTConfig, device="cuda") -> MMDiT:
     """The port's backbone holding a JAX param pytree's values."""
     model = MMDiT(cfg, device)
     state, _ = convert_params(params, device)
@@ -111,7 +111,7 @@ def mmdit_from_jax(params, cfg: MMDiTConfig, device="cpu") -> MMDiT:
     return model.eval()
 
 
-def vae_from_jax(params, cfg, device="cpu") -> nn.Module:
+def vae_from_jax(params, cfg, device="cuda") -> nn.Module:
     """The port's VAE (`AutoencoderKL` or `WanVAE`, by the config's type)
     holding a JAX VAE param tree's values; a strict load, every leaf
     consumed once."""
@@ -131,7 +131,7 @@ def vae_from_jax(params, cfg, device="cpu") -> nn.Module:
 
 @torch.no_grad()
 def init_vae_params(cfg, generator: torch.Generator,
-                    device="cpu") -> nn.Module:
+                    device="cuda") -> nn.Module:
     """A VAE of `cfg`'s family with random weights drawn on `device` from
     `generator`."""
     vae = vae_module(cfg)(cfg, device)
@@ -150,7 +150,7 @@ def init_vae_params(cfg, generator: torch.Generator,
 
 @torch.no_grad()
 def init_params(cfg: MMDiTConfig, generator: torch.Generator,
-                device="cpu") -> MMDiT:
+                device="cuda") -> MMDiT:
     """A backbone with random weights drawn on `device` from `generator`."""
     model = MMDiT(cfg, device)
     for mod in model.modules():

@@ -39,7 +39,8 @@ def _params(preset):
 
 
 def make_pipe(cls=Step1XEditPipeline, preset="tiny", re=None):
-    model = mmdit_from_jax(_params(preset), get_config(preset))
+    model = mmdit_from_jax(_params(preset), get_config(preset),
+                           device="cpu")
     return cls(model, re or RegionEParams())
 
 

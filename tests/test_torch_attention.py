@@ -17,10 +17,11 @@ dequantize, concatenate, `sdpa`) the bound is 2e-5.
 K5 is `flash_attention(block_q=1024)` at
 S = 2048, past the resident budget, so the JAX side runs `_flash_kernel`.
 The CUDA kernels themselves are checked against the same plain versions
-by the `cuda`-marked tests, which run only where a card is present: bf16
-K/V go to the Hopper kernel (`regione_attention_tma_fwd`, TMA + wgmma), a
-quantized cache to `regione_attention_fwd`.  On the CPU a fake library
-records which C entry each wrapper calls and with what.
+by the `cuda`-marked tests, which run only where a card is present: every
+storage mode goes to the one Hopper kernel (`regione_attention_tma_fwd`,
+TMA + wgmma; a quantized cache dequantized by its producer warps).  On the
+CPU a fake library records which C entry each wrapper calls and with
+what.
 """
 
 import contextlib
@@ -364,7 +365,10 @@ def test_bf16_goes_to_the_hopper_kernel(fake_lib, b):
 @pytest.mark.parametrize("quant", [tq.quantize_kv_heads,
                                    tq.quantize_kv_heads4])
 def test_quantized_cache_goes_to_the_dequantizing_kernel(fake_lib, quant):
-    """K2q and K6 (int8 or int4 cache) keep `regione_attention_fwd`."""
+    """K2q and K6 (int8 or int4 cache) call `regione_attention_tma_fwd`
+    with mode2 1 / 2, the logical S2 (the scales' count, twice the packed
+    int4 rows), the codes' strides in bytes and the scales' (b, h)
+    strides."""
     fa.reset_launches()
     q = _bf16_heads(2, 40)
     rows, sc = quant(torch.zeros((2, H, 64, D)))
@@ -373,8 +377,14 @@ def test_quantized_cache_goes_to_the_dequantizing_kernel(fake_lib, quant):
     mode = fa.MODE_INT8 if rows.shape[2] == 64 else fa.MODE_INT4
     assert [(name, args[_S1], args[_S2], args[_MODE])
             for name, args in fake_lib.calls] == [
-        ("regione_attention_fwd", 40, 64, mode),
-        ("regione_attention_fwd", 0, 64, mode)]
+        ("regione_attention_tma_fwd", 40, 64, mode),
+        ("regione_attention_tma_fwd", 0, 64, mode)]
+    n = rows.shape[2]
+    for _, args in fake_lib.calls:
+        st = list(args[_STRIDES])
+        assert st[9:15] == [H * n * D, n * D, D] * 2
+        assert st[15:] == [H * 64, 64, H * 64, 64]
+        assert args[5] is not None and args[6] is not None
     assert (fa.attention_rows2_quant.launches,
             fa.attention_quant.launches) == (1, 1)
 
@@ -426,6 +436,49 @@ def test_hopper_kernel_matches_plain_on_the_card(cuda_device, b, s1, s2):
     else:
         got = fa.attention_rows2(q, k1, v1, k2, v2, bias)
         want = fa.attention_rows2_reference(q, k1, v1, k2, v2, bias)
+    assert got.shape == (b, t, H * D) and bool(torch.isfinite(got).all())
+    err = (got.float() - want.float()).abs().max()
+    assert err <= 2e-2 * want.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("s1,s2", [(0, 2176), (131, 2176), (131, 200),
+                                   (0, 258), (128, 8064)])
+def test_hopper_quant_kernel_matches_plain_on_the_card(cuda_device, bits, b,
+                                                       s1, s2):
+    """K2q (S1 > 0) and K6 (S1 = 0) on the Hopper kernel against their
+    plain versions: S1 off the 128-key tile, S2 / 2 off it too (int4 at
+    S2 2176: each nibble half ends mid-tile), T ragged (267), the cache's
+    first key tile whole at -1e30, pad columns at -1e9, head-split q and
+    fresh K/V views, B 1 and 2.  Tolerance 2e-2 of the output's
+    scale (the bound chip_smoke.py states)."""
+    rng = np.random.default_rng(100 * bits + 10 * b + s1 + s2)
+    t = 267
+
+    def heads(rows):
+        x = torch.from_numpy(rng.standard_normal((b, rows, H * D),
+                                                 np.float32))
+        return x.to(cuda_device, torch.bfloat16).view(b, rows, H, D) \
+            .transpose(1, 2)
+
+    quant = tq.quantize_kv_heads if bits == 8 else tq.quantize_kv_heads4
+    q, k1, v1 = heads(t), heads(s1), heads(s1)
+    kc, ks = quant(heads(s2))
+    vc, vs = quant(heads(s2))
+    bias = _bias(b, s1 + s2, 4)
+    # the cache's first key tile, whole (at S1 = 0 the first tile of all)
+    bias[:, s1:s1 + min(128, s2 // 2 if bits == 4 else s2)] = -1e30
+    bias = torch.from_numpy(bias).to(cuda_device)
+    if s1 == 0:
+        got = fa.attention(q, kc, vc, bias, k_scale=ks, v_scale=vs)
+        want = fa.attention_quant_reference(q, kc, vc, ks, vs, bias)
+    else:
+        got = fa.attention_rows2(q, k1, v1, kc, vc, bias, k_scale=ks,
+                                 v_scale=vs)
+        want = fa.attention_rows2_quant_reference(q, k1, v1, kc, vc, ks, vs,
+                                                  bias)
     assert got.shape == (b, t, H * D) and bool(torch.isfinite(got).all())
     err = (got.float() - want.float()).abs().max()
     assert err <= 2e-2 * want.float().abs().max()

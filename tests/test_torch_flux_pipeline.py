@@ -72,8 +72,8 @@ def test_guidance_forward_matches_jax():
     to the model dtype); the guidance_in leaves map by name."""
     params = _params(0)
     jcfg, cfg = j_get_config("tiny-flux"), get_config("tiny-flux")
-    model = mmdit_from_jax(params, cfg)
-    assert "guidance_in.in_.weight" in convert_params(params)[0]
+    model = mmdit_from_jax(params, cfg, device="cpu")
+    assert "guidance_in.in_.weight" in convert_params(params, "cpu")[0]
     rng = np.random.default_rng(1)
     img = rng.standard_normal((2, 2 * S, cfg.in_channels)).astype(np.float32)
     txt = rng.standard_normal((2, T_TXT, cfg.txt_in_dim)).astype(np.float32)
@@ -104,7 +104,7 @@ def test_guidance_forward_matches_jax():
 
 def test_init_params_draws_guidance_in():
     model = init_params(get_config("tiny-flux"),
-                        torch.Generator().manual_seed(0))
+                        torch.Generator().manual_seed(0), device="cpu")
     w = model.guidance_in.in_.weight
     lim = 1.0 / np.sqrt(w.shape[1])
     assert w.abs().max() <= lim and w.std() > lim / 3
@@ -117,7 +117,7 @@ def _edit_both(guidance, re, dense_only=False):
                                     gamma=gamma_for("flux-kontext"),
                                     guidance_scale=guidance)
     tpipe = tfk.FluxKontextPipeline(
-        mmdit_from_jax(params, get_config("tiny-flux")), re,
+        mmdit_from_jax(params, get_config("tiny-flux"), device="cpu"), re,
         guidance_scale=guidance)
     assert not tpipe.do_cfg and tpipe.backend == "flux-kontext"
     np.testing.assert_array_equal(tpipe.gamma, gamma_for("flux-kontext"))
@@ -168,7 +168,8 @@ def test_guidance_value_changes_the_edit():
 
 
 def test_true_cfg_switches_to_a_batch_of_two():
-    model = mmdit_from_jax(_params(11), get_config("tiny-flux"))
+    model = mmdit_from_jax(_params(11), get_config("tiny-flux"),
+                           device="cpu")
     assert not tfk.FluxKontextPipeline(model).do_cfg
     pipe = tfk.FluxKontextPipeline(model, true_cfg_scale=2.0)
     assert pipe.do_cfg and pipe.guidance_scale == 2.5

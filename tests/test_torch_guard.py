@@ -14,11 +14,15 @@
     quantized-cache ones included);
   * the kernels' library is named by a hash of the sources, so an edit
     rebuilds; each source compiles in its own nvcc process, then one link
-    (a fake nvcc records the commands).
+    (a fake nvcc records the commands); the C signatures the loader binds
+    are exactly the `extern "C"` entries of the sources;
+  * the public builders of models and VAEs default to the card.
 """
 
 import ast
+import inspect
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -216,3 +220,25 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
     assert out.count("Used 1 registers") == 3
     assert sorted(p.name for p in build.iterdir()) == [path.name]
     assert _build.build() == (path, "")          # built: nothing to do
+
+
+def test_signatures_name_exactly_the_c_entries():
+    """No entry bound by the loader is missing from csrc/*.cu, and none of
+    the sources' `extern "C"` entries goes unbound."""
+    found = set()
+    for src in _build.sources():
+        found |= set(re.findall(r'extern "C" \w+\s+(\w+)\(',
+                                src.read_text()))
+    assert found == set(_build._SIGNATURES)
+    assert "regione_attention_tma_fwd" in found
+
+
+def test_public_builders_default_to_the_card():
+    from regione_tpu_torch.models.vae import AutoencoderKL
+    from regione_tpu_torch.models.vae_wan import WanVAE
+    from regione_tpu_torch.weights import from_jax
+    for fn in (from_jax.convert_params, from_jax.mmdit_from_jax,
+               from_jax.vae_from_jax, from_jax.init_vae_params,
+               from_jax.init_params, AutoencoderKL.__init__, WanVAE.__init__):
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == "cuda", fn.__qualname__

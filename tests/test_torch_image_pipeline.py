@@ -112,10 +112,11 @@ def make_pair(backend, encoder=None, **kw):
     params, vparams = _weights(preset, family)
     jvcfg, tvcfg, _ = VAES[family]
     jpipe = getattr(jmod, cls)(j_get_config(preset), params, RE, **kw)
-    tpipe = getattr(tmod, cls)(mmdit_from_jax(params, get_config(preset)),
+    tpipe = getattr(tmod, cls)(mmdit_from_jax(params, get_config(preset),
+                                              device="cpu"),
                                RE, **kw)
     jpipe.attach_vae(jvcfg, vparams)
-    tpipe.attach_vae(vae_from_jax(vparams, tvcfg))
+    tpipe.attach_vae(vae_from_jax(vparams, tvcfg, device="cpu"))
     cfg = tpipe.cfg
     enc = encoder or PromptEncoder(cfg.txt_in_dim, cfg.pooled_dim or None)
     for p in (jpipe, tpipe):

@@ -196,7 +196,7 @@ def test_dense_forward_rounds_sigma_to_the_model_dtype(monkeypatch):
                         jctx, False)
 
     cfg = dataclasses.replace(get_config("tiny"), dtype=torch.bfloat16)
-    tpipe = EditPipelineBase(init_params(cfg, torch.Generator()),
+    tpipe = EditPipelineBase(init_params(cfg, torch.Generator(), device="cpu"),
                              gamma=gamma)
 
     def t_fwd(img, txt, t, *a, **kw):

@@ -43,7 +43,7 @@ def _models(preset, seed=0):
     jcfg = j_get_config(preset)
     params = jm.init_mmdit(jax.random.PRNGKey(seed), jcfg)
     model = mmdit_from_jax(jax.tree.map(np.asarray, params),
-                           get_config(preset))
+                           get_config(preset), device="cpu")
     return jcfg, params, model
 
 
@@ -144,7 +144,8 @@ def test_quantized_cache_matches_jax(preset, bits):
         params["txt_norm"]["scale"] = np.random.default_rng(5).uniform(
             0.5, 1.5, jcfg.txt_in_dim).astype(np.float32)
     model = mmdit_from_jax(params, dataclasses.replace(get_config(preset),
-                                                       **flag))
+                                                       **flag),
+                           device="cpu")
     cfg = model.cfg
     x = _inputs(cfg)
     tol = dict(rtol=1e-5, atol=1e-5)
@@ -264,14 +265,14 @@ def test_presets_match_jax():
 
 def test_init_params_distributions():
     g = torch.Generator().manual_seed(0)
-    model = init_params(get_config("tiny-step1x"), g)
+    model = init_params(get_config("tiny-step1x"), g, device="cpu")
     lin = model.double_blocks[0].img_attn.q
     lim = 1.0 / np.sqrt(lin.in_features)
     assert lin.weight.abs().max() <= lim and lin.weight.std() > lim / 3
     assert (lin.bias == 0).all()
     assert (model.double_blocks[0].img_attn.norm_q.scale == 1).all()
     assert model.connector.scale_factor.item() == pytest.approx(-0.91)
-    qwen = init_params(get_config("tiny-qwen"), g)
+    qwen = init_params(get_config("tiny-qwen"), g, device="cpu")
     assert (qwen.txt_norm.scale == 1).all()
     assert not hasattr(qwen, "single_blocks")
 
@@ -280,7 +281,8 @@ def test_from_jax_keeps_bf16_bits():
     """bf16 leaves (the full-width presets' dtype) convert bit for bit."""
     w = jax.random.normal(jax.random.PRNGKey(3), (4, 6), jnp.bfloat16)
     state, _ = convert_params({"final_proj": {"w": w,
-                                              "b": jnp.ones(6, jnp.bfloat16)}})
+                                              "b": jnp.ones(6, jnp.bfloat16)}},
+                              "cpu")
     got = state["final_proj.weight"]
     assert got.dtype == torch.bfloat16 and got.shape == (6, 4)
     np.testing.assert_array_equal(got.float().numpy(),

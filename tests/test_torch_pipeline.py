@@ -50,7 +50,7 @@ def _params(preset, seed):
 def _pipes(preset, re):
     params = _params(preset, 0)
     jpipe = JStep1XEditPipeline(j_get_config(preset), params, re)
-    model = mmdit_from_jax(params, get_config(preset))
+    model = mmdit_from_jax(params, get_config(preset), device="cpu")
     return jpipe, Step1XEditPipeline(model, re)
 
 
@@ -150,7 +150,8 @@ def test_sampler_variants_match_jax(variant):
     params = _params("tiny", 1)
     gamma = gamma_for("step1x-edit")
     jpipe = JEditPipelineBase(j_get_config("tiny"), params, re, gamma=gamma)
-    tpipe = EditPipelineBase(mmdit_from_jax(params, get_config("tiny")), re,
+    tpipe = EditPipelineBase(mmdit_from_jax(params, get_config("tiny"),
+                                            device="cpu"), re,
                              gamma=gamma)
     x = _inputs(tpipe.cfg, seed=4)
     x["txt"], x["pooled"] = x["txt"][:1], x["pooled"][:1]
@@ -170,7 +171,8 @@ def test_multi_reference_rope_ids_match_jax():
     jpipe = JEditPipelineBase(j_get_config("tiny"), _params("tiny", 0),
                               gamma=gamma)
     tpipe = EditPipelineBase(mmdit_from_jax(_params("tiny", 0),
-                                            get_config("tiny")), gamma=gamma)
+                                            get_config("tiny"), device="cpu"),
+                             gamma=gamma)
     for grids in (None, [(8, 8), (4, 6)]):
         for got, want in zip(
                 tpipe.rope_position_ids(8, 8, 8, cond_grids=grids),
@@ -194,7 +196,8 @@ def test_multi_reference_edit_matches_jax():
     params = _params("tiny", 1)
     gamma = gamma_for("step1x-edit")
     jpipe = JEditPipelineBase(j_get_config("tiny"), params, re, gamma=gamma)
-    tpipe = EditPipelineBase(mmdit_from_jax(params, get_config("tiny")), re,
+    tpipe = EditPipelineBase(mmdit_from_jax(params, get_config("tiny"),
+                                            device="cpu"), re,
                              gamma=gamma)
     grids = [(GRID, GRID), (4, 6)]
     rng = np.random.default_rng(6)

@@ -50,7 +50,8 @@ def _pipes(cls_name, cache, re):
     jcfg = dataclasses.replace(j_get_config("tiny-qwen"), **CACHES[cache])
     tcfg = dataclasses.replace(get_config("tiny-qwen"), **CACHES[cache])
     return (getattr(jqie, cls_name)(jcfg, params, re),
-            getattr(tqie, cls_name)(mmdit_from_jax(params, tcfg), re))
+            getattr(tqie, cls_name)(
+                mmdit_from_jax(params, tcfg, device="cpu"), re))
 
 
 def _edit_both(jpipe, tpipe, seed, cond_grids=None, **kw):

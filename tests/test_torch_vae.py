@@ -53,7 +53,7 @@ CONFIGS = {
 def _pair(family):
     jcfg, tcfg, init = CONFIGS[family]
     params = jax.tree.map(np.asarray, init(jax.random.PRNGKey(3), jcfg))
-    return jcfg, params, vae_from_jax(params, tcfg)
+    return jcfg, params, vae_from_jax(params, tcfg, device="cpu")
 
 
 def _jmod(family):
@@ -133,13 +133,14 @@ def test_vae_from_jax_is_strict(family):
     dropped = jax.tree.map(lambda x: x, params)
     dropped["decoder"]["up"][0]["resnets"][0].pop("conv1")
     with pytest.raises(RuntimeError, match="Missing key"):
-        vae_from_jax(dropped, CONFIGS[family][1])
+        vae_from_jax(dropped, CONFIGS[family][1], device="cpu")
 
 
 @pytest.mark.parametrize("family", ["kl", "wan"])
 def test_init_vae_params_distributions(family):
     cfg = CONFIGS[family][1]
-    vae = init_vae_params(cfg, torch.Generator().manual_seed(0))
+    vae = init_vae_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
     for name, p in vae.named_parameters():
         if name.endswith("weight"):
             lim = 1.0 / np.sqrt(p[0].numel())
