@@ -6,19 +6,25 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
   2. build the hand-written kernels from regione_tpu_torch/csrc with nvcc;
   3. each kernel against its plain PyTorch version at the slices' shapes,
-     with its error bound, and both times (CUDA events): K1, K2, K3, K2q
-     (int8 and int4 cache, at Qwen's grid-64 shape 1152 + 8192 too), K5
-     (K1 past 12,288 keys) and K6, ragged shapes (T, S1 and, under int4,
-     S2 / 2 off the 128-row tile) included; beside each its
-     bound (the least time the card could take: operations at the peak
-     rate or bytes at the memory rate, whichever is larger) and, for the
-     attention kernels, the fastest `scaled_dot_product_attention` backend
-     on the same inputs (timed only: the port never calls it);
+     with its error bound, and both times (CUDA events): K1, K2, K3 (grids
+     32, 64, 160, 256, 48 x 80 and a ragged 37 x 53), K2q (int8 and int4
+     cache, at Qwen's grid-64 shape 1152 + 8192 too), K5 (K1 past 12,288
+     keys) and K6, ragged shapes (T, S1 and, under int4, S2 / 2 off the
+     128-row tile) included; beside each its bound (the least time the
+     card could take: operations at the peak rate or bytes at the memory
+     rate, whichever is larger), beside K3 its device time (its calls
+     captured in a CUDA graph) and the launch floor (a call of
+     `torch.zeros(1).zero_()`) and, for the attention kernels, the fastest
+     `scaled_dot_product_attention` backend on the same inputs (timed
+     only: the port never calls it);
   4. small head_dim-128 models: the card's path against the port's CPU
      path on the same weights and inputs: Step1X topology (bf16 cache),
      Qwen topology with the int8 and the int4 cache, Qwen-Image-Edit-Plus
      with two 64 x 64 references (dense S past 12,288: K5), and
-     `sdpa_cached` over a quantized cache alone (K6);
+     `sdpa_cached` over a quantized cache alone (K6); then, on the card
+     alone, the Step1X topology with 64 in / out channels at grid 160
+     (S 25,600, a 2560 x 2560 image): a dense and a RegionE edit, K3 once,
+     a partial partition, latent PSNR against dense;
   5. the Step1X-Edit slice at full published width and depth with random
      bf16 weights: a dense 28-step edit and the RegionE edit of two
      requests through `Step1XEditPipeline.edit_latents`, with the kernels'
@@ -204,6 +210,22 @@ def cuda_ms(fn, iters=5, warmup=1):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, n):
+    """Device ms per call of `fn`: n calls captured in one CUDA graph, the
+    graph replayed under CUDA events (no host work between launches)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    return cuda_ms(g.replay, 5) / n
+
+
 def _heads_view(rng, b, h, t, d, device):
     """[B, H, T, D] bf16 as the model makes it: a head-split view of a
     [B, T, H*D] tensor (non-contiguous, as `split_heads` returns)."""
@@ -384,20 +406,31 @@ def check_attention_quant(rng, b, h, t, s, bits, iters):
                                 scales=True), lib)
 
 
-def check_partition(rng, grid, d, iters):
-    """K3 on a [grid, grid, d] fp32 pair.  Masks must agree except at
+def launch_floor_ms(iters):
+    """The launch floor, a yardstick for K3 (not a bound): CUDA-event ms of
+    `torch.zeros(1).zero_()` over `iters` back-to-back calls from Python,
+    and the device ms of one `zero_()` of a 1-element tensor per node of a
+    CUDA graph."""
+    import torch
+    one = torch.zeros(1, device=DEVICE)
+    return (cuda_ms(lambda: torch.zeros(1, device=DEVICE).zero_(), iters),
+            graph_ms(one.zero_, iters))
+
+
+def check_partition(rng, grid_h, grid_w, d, iters):
+    """K3 on a [grid_h, grid_w, d] fp32 pair.  Masks must agree except at
     tokens whose fp64 similarity lies within 1e-5 of the threshold; with
     morphology, the plain morphology over the kernel's own threshold
     decisions must equal the kernel exactly."""
     import torch
     from regione_tpu_torch.ops import partition_kernel as pk
     dev = torch.device(DEVICE)
-    s = grid * grid
+    s = grid_h * grid_w
     thr = 0.88
     x0 = rng.standard_normal((s, d)).astype(np.float32)
     cond = x0 + 0.35 * rng.standard_normal((s, d)).astype(np.float32)
-    blk = np.zeros((grid, grid), bool)
-    blk[grid // 8: grid // 2, grid // 8: grid // 2] = True
+    blk = np.zeros((grid_h, grid_w), bool)
+    blk[grid_h // 8: grid_h // 2, grid_w // 8: grid_w // 2] = True
     cond[blk.reshape(-1)] = rng.standard_normal(
         (int(blk.sum()), d)).astype(np.float32)
     x0_t = torch.from_numpy(x0).to(dev)
@@ -406,32 +439,36 @@ def check_partition(rng, grid, d, iters):
     sim = (x64 * c64).sum(-1) / np.sqrt((x64 * x64).sum(-1)
                                         * (c64 * c64).sum(-1) + 1e-12)
     near = np.abs(sim - thr) < 1e-5
-    raw = pk.fused_partition(x0_t, cond_t, thr, grid, grid, False)
-    full = pk.fused_partition(x0_t, cond_t, thr, grid, grid, True)
+    args = (x0_t, cond_t, thr, grid_h, grid_w)
+    raw = pk.fused_partition(*args, False)
+    full = pk.fused_partition(*args, True)
     torch.cuda.synchronize()
-    raw_ref = pk.partition_reference(x0_t, cond_t, thr, grid, grid, False)
+    raw_ref = pk.partition_reference(*args, False)
     diff = (raw != raw_ref).cpu().numpy()
     ok = not (diff & ~near).any()
-    morph = pk.remove_scattered_points(raw.reshape(grid, grid)).reshape(-1)
-    ok = ok and bool((morph == full).all())
-    full_ref = pk.partition_reference(x0_t, cond_t, thr, grid, grid, True)
+    morph = pk.remove_scattered_points(raw.reshape(grid_h, grid_w))
+    ok = ok and bool((morph.reshape(-1) == full).all())
+    full_ref = pk.partition_reference(*args, True)
     n_diff = int((full_ref != full).sum())
     ok = ok and (n_diff == 0 or bool(near.any()))
-    ms = cuda_ms(lambda: pk.fused_partition(x0_t, cond_t, thr, grid, grid,
-                                            True), iters)
-    pms = cuda_ms(lambda: pk.partition_reference(x0_t, cond_t, thr, grid,
-                                                 grid, True), iters)
+    ms = cuda_ms(lambda: pk.fused_partition(*args, True), iters)
+    dev_ms = graph_ms(lambda: pk.fused_partition(*args, True), iters)
+    pms = cuda_ms(lambda: pk.partition_reference(*args, True), iters)
+    floor, floor_dev = launch_floor_ms(iters)
     edited = int(full.sum())
-    log(f"K3 partition {grid}x{grid}x{d}: edited {edited}/{s}, raw-mask "
-        f"differences {int(diff.sum())}, tokens within 1e-5 of the "
-        f"threshold {int(near.sum())}, final-mask differences {n_diff}; "
-        f"kernel {ms:.4f} ms plain {pms:.4f} ms {'ok' if ok else 'FAIL'}")
+    label = f"K3 partition {grid_h}x{grid_w}x{d}"
+    log(f"{label}: edited {edited}/{s}, raw-mask differences "
+        f"{int(diff.sum())}, tokens within 1e-5 of the threshold "
+        f"{int(near.sum())}, final-mask differences {n_diff}; kernel "
+        f"{ms:.4f} ms a call ({dev_ms:.4f} ms on the device, CUDA graph), "
+        f"plain {pms:.4f} ms {'ok' if ok else 'FAIL'}")
     # bound: two fp32 [S, d] inputs read, a bool [S] written; three dot
     # products of d a token on the fp32 units.  No single library call
     # computes the partition
     bound_ms, bound_by = bound(6 * s * d, 2 * s * d * 4 + s, PEAK_FP32)
-    log(f"K3 partition {grid}x{grid}x{d}: bound {bound_ms:.5f} ms by "
-        f"{bound_by}, library none")
+    log(f"{label}: bound {bound_ms:.5f} ms by {bound_by}; launch floor "
+        f"{floor:.4f} ms a call of torch.zeros(1).zero_() ({floor_dev:.4f} "
+        f"ms a zero_() on the device), {iters} calls; library none")
     # max |plain - kernel| over the 0/1 final masks
     return dict(ok=ok, max_abs_err=float(n_diff > 0), ms=ms, plain_ms=pms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
@@ -486,10 +523,14 @@ def phase_kernels(grid, qwen_grid):
         ok &= r["ok"]
         if b == 2:
             results[f"attention_quant_int{bits}"] = r
-    for g in (64, 32):
-        r = check_partition(rng, g, 64, iters=20)
+    # K3 at the grids of 512^2 to 4096^2 images (d 64), a 768 x 1280 one
+    # and a ragged one: 160 and 256 lie past the 24,576 tokens an earlier
+    # one-CTA version of the kernel held
+    for gh, gw in ((64, 64), (32, 32), (160, 160), (256, 256), (48, 80),
+                   (37, 53)):
+        r = check_partition(rng, gh, gw, 64, iters=20)
         ok &= r["ok"]
-        if g == grid:
+        if gh == gw == grid:
             results["fused_partition"] = r
     if not ok:
         fail("a kernel disagrees with its plain version")
@@ -833,6 +874,59 @@ def phase_slice(grid):
                    (1, grid * grid, cfg.out_channels), "bf16")
         runs.append(counts)
     return runs[-1], (pipe, ctx, lat0)
+
+
+def phase_large_grid(grid=160):
+    """A card-only edit past the 24,576 tokens an earlier one-CTA K3
+    held: phase 4's small Step1X topology widened to the published in /
+    out channels of 64 (hidden 256, 2 heads of 128, 2 double and 2 single
+    blocks, t_txt 16, random bf16 weights) at grid `grid` (a 2560 x 2560
+    image: S 25,600, the dense steps over 51,216 keys), with
+    `structured_condition`'s probe so the partition is partial; a dense
+    and a RegionE edit through `edit_latents`, held by `check_edit` (K3
+    once, a partial partition, RAGS steps, latent PSNR against dense).
+    Returns the RegionE edit's launch counts."""
+    import torch
+    from regione_tpu_torch.core.config import RegionEParams
+    from regione_tpu_torch.models.connector import ConnectorConfig
+    from regione_tpu_torch.models.mmdit import MMDiTConfig
+    from regione_tpu_torch.pipelines.step1x_edit import Step1XEditPipeline
+    from regione_tpu_torch.weights.from_jax import init_params
+    dev = torch.device(DEVICE)
+    t_txt = 16
+    conn = ConnectorConfig(in_dim=64, hidden=256, heads=2, depth=1,
+                           pooled_dim=32, time_embed_dim=64,
+                           dtype=torch.bfloat16)
+    cfg = MMDiTConfig(hidden=256, heads=2, head_dim=128, depth_double=2,
+                      depth_single=2, time_embed_dim=64, mlp_ratio=2.0,
+                      in_channels=64, out_channels=64, txt_in_dim=256,
+                      pooled_dim=32, connector=conn, dtype=torch.bfloat16)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    re = RegionEParams(warmup_step=6, post_step=2, refresh_step=(16,),
+                       threshold=0.88, cache_threshold=0.02)
+    pipe = Step1XEditPipeline(model, re, true_cfg_scale=6.0)
+    rng = np.random.default_rng(160)
+    rope = pipe.build_rope(grid, grid, t_txt)
+    txt = torch.from_numpy(rng.standard_normal(
+        (2, t_txt, conn.in_dim), np.float32)).to(dev, cfg.dtype)
+    sampler = pipe.sampler_for(grid, grid, t_txt, 2)
+    label = f"step1x small topology, grid {grid}"
+    r, lat0 = _request(cfg, 161, grid)
+    cond = structured_condition(pipe, sampler, re, grid, txt, None, rope,
+                                lat0, r, label)
+    ctx = _ctx(txt, None, cond, rope)
+    dense, _, dense_s, dense_counts, _ = timed_edit(pipe, lat0, ctx, grid,
+                                                    dense_only=True)
+    out, stats, regione_s, counts, peak = timed_edit(pipe, lat0, ctx, grid)
+    log(f"{label}: dense launches {dense_counts}")
+    log(f"{label}: RegionE launches {counts}")
+    log(f"{label}: dense_s {dense_s:.3f} regione_s {regione_s:.3f} speedup "
+        f"{dense_s / regione_s:.3f}x, peak device memory {peak:.1f} GiB")
+    check_edit(label, out, stats, counts, dense,
+               (1, grid * grid, cfg.out_channels), "bf16")
+    del pipe, model, ctx, lat0
+    release()
+    return counts
 
 
 def phase_qwen_slice(grid, preset="qwen-image-edit"):
@@ -1252,7 +1346,7 @@ def phase_flux_image(preset="flux-kontext", vae_cfg=None, size=900):
                                      s_kv + t_txt, True, iters=5),
         "attention_rows2": check_rows2(rng, 1, cfg.heads, t_txt,
                                        stats.capacity, s_kv, iters=10),
-        "fused_partition": check_partition(rng, grid, cfg.in_channels,
+        "fused_partition": check_partition(rng, grid, grid, cfg.in_channels,
                                            iters=20)}
     if not all(r["ok"] for r in checks.values()):
         fail("a kernel disagrees with its plain version at the FLUX shapes")
@@ -1316,6 +1410,9 @@ def main():
     t = time.perf_counter()
     paths = phase_small_reference()
     log(f"phase small reference done in {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    paths["large_grid"] = phase_large_grid()
+    log(f"phase large grid (grid 160) done in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     phase_vae_card_vs_cpu()
     log(f"phase 6d (VAEs, card vs CPU) done in {time.perf_counter() - t:.1f}s")

@@ -8,9 +8,12 @@ of `regione_tpu/ops/partition_kernel.py`:
   -> 3x3-cross erosion -> 5x5-square dilation (out-of-grid cells are 0)
   -> bool mask [S]
 
-On a CPU tensor it computes the plain PyTorch version
-(`partition_reference`, the same formula); on a CUDA tensor it launches the
-kernel or raises.  `fused_partition.launches` counts kernel launches.
+The kernel takes any grid and any D: one launch of a CTA per output tile
+(8 x 8, or 16 x 16 at grids past one wave of 8 x 8 CTAs), each
+thresholding its tile plus a 3-cell halo (see the source's note).  On a
+CPU tensor `fused_partition` computes the plain PyTorch version
+(`partition_reference`, the same formula); on a CUDA tensor it launches
+the kernel or raises.  `fused_partition.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -69,9 +72,6 @@ def fused_partition(x0, cond, threshold, grid_h: int, grid_w: int,
                              f"{tuple(x.shape)}")
     if cond.shape != x0.shape:
         raise ValueError(f"x0 {tuple(x0.shape)} vs cond {tuple(cond.shape)}")
-    if 2 * s > 48 * 1024:
-        raise ValueError(f"grid {grid_h}x{grid_w} exceeds the kernel's "
-                         "shared-memory maps (S <= 24576)")
     out = torch.empty((s,), dtype=torch.uint8, device=x0.device)
     lib = _build.load()
     with torch.cuda.device(x0.device):

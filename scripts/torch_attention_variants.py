@@ -48,6 +48,30 @@ VARIANTS = {
 }
 
 
+def build_variant(name, edits, target, sources):
+    """Copy the kernel sources `sources` under build/variants/<name>/csrc,
+    apply the text edits (old, new) to the file named `target`, and build
+    and load that copy through `ops/_build.py`, whose wrappers then launch
+    it.  Returns the compiler's log (`ptxas -v`)."""
+    from regione_tpu_torch.ops import _build
+    root = REPO / "build" / "variants" / name
+    (root / "csrc").mkdir(parents=True, exist_ok=True)
+    for f in sources:
+        shutil.copy(f, root / "csrc" / f.name)
+    path = root / "csrc" / target
+    text = path.read_text()
+    for old, new in edits:
+        if old not in text:
+            sys.exit(f"{name}: the source no longer holds {old!r}")
+        text = text.replace(old, new)
+    path.write_text(text)
+    _build.CSRC, _build.BUILD_DIR = root / "csrc", root / "kernels"
+    _build._lib = None
+    _, log = _build.build()
+    _build.load()
+    return log
+
+
 def main():
     import torch
 
@@ -73,22 +97,9 @@ def main():
     qz = {8: quant.quantize_kv_heads, 4: quant.quantize_kv_heads4}
     caches = {bits: qz[bits](kc) for bits in (8, 4)}
     caches6 = {bits: qz[bits](kv6) for bits in (8, 4)}
-    src = (_build.CSRC / "attention_tma.cu").read_text()
+    own = _build.sources()
     for name, edits in VARIANTS.items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                sys.exit(f"{name}: the source no longer holds {old!r}")
-            text = text.replace(old, new)
-        root = REPO / "build" / "variants" / name
-        (root / "csrc").mkdir(parents=True, exist_ok=True)
-        for f in _build.sources():
-            shutil.copy(f, root / "csrc" / f.name)
-        (root / "csrc" / "attention_tma.cu").write_text(text)
-        _build.CSRC, _build.BUILD_DIR = root / "csrc", root / "kernels"
-        _build._lib = None
-        _, log = _build.build()
-        _build.load()
+        log = build_variant(name, edits, "attention_tma.cu", own)
         spills = [line.split(":", 1)[-1].strip()
                   for line in log.splitlines() if "spill" in line]
         ms = {}
