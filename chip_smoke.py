@@ -13,7 +13,9 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
      128-row tile) included; beside each its bound (the least time the
      card could take: operations at the peak rate or bytes at the memory
      rate, whichever is larger), beside K3 its device time (its calls
-     captured in a CUDA graph) and the launch floor (a call of
+     captured in a CUDA graph; K3 also over a group of B = 1, 2, 4 images
+     at 64 x 64 and B = 3 at grid 32 in one launch, each image's mask
+     equal to its own B = 1 launch) and the launch floor (a call of
      `torch.zeros(1).zero_()`) and, for the attention kernels, the fastest
      `scaled_dot_product_attention` backend on the same inputs (timed
      only: the port never calls it);
@@ -31,6 +33,12 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
      launch counts, the plan statistics, the timings and the latent PSNR of
      RegionE against dense; then its device time by kernel group
      (torch.profiler) and the device's idle share;
+  7. serving (a), on phase 5's weights: three requests with partial
+     partitions of different sizes, each through `edit_latents`, then as
+     one group through `edit_latents_batch` (one K3 launch, one capacity):
+     per-image counts, latent PSNR of batched against single >= 40 dB,
+     seconds per image and images/s both ways, peaks, the group's profile,
+     `memplan.plan` beside the card's bytes, K2 at the group's shape;
   5b. the Qwen-Image-Edit slice at full published width and depth (60
      double blocks, 20.4 B parameters, random bf16 weights) at its native
      1024 x 1024 (grid 64): one request, its dense edit, the int8-cache
@@ -53,6 +61,11 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
          `RegionEHelper.disable()`, pixel PSNR of RegionE against dense;
          the denoise's profile; then K1, K2 and K3 at this path's shapes
          against their plain versions;
+     7b. serving (b), on 6a's pipeline: `EditService.run` and
+         `run_batched(max_batch=2)` over two 900 x 900 requests and one
+         1200 x 800 (two geometry groups): uint8 outputs at the input
+         geometry, pixel PSNR of batched against single >= 40 dB, and
+         `run` against 6a's `pipe(image, prompt, seed=3)`;
      6c. the CLI's `run_demo` on that pipeline, writing demo_0.png.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is the kernels' JSON record, the last line the
@@ -417,22 +430,29 @@ def launch_floor_ms(iters):
             graph_ms(one.zero_, iters))
 
 
-def check_partition(rng, grid_h, grid_w, d, iters):
-    """K3 on a [grid_h, grid_w, d] fp32 pair.  Masks must agree except at
+def check_partition(rng, grid_h, grid_w, d, iters, batch=None):
+    """K3 on a [grid_h, grid_w, d] fp32 pair, or on `batch` of them in one
+    launch (each image its own edited block).  Masks must agree except at
     tokens whose fp64 similarity lies within 1e-5 of the threshold; with
     morphology, the plain morphology over the kernel's own threshold
-    decisions must equal the kernel exactly."""
+    decisions must equal the kernel exactly; a batch's masks must equal
+    each image's own B = 1 launch bit for bit."""
     import torch
     from regione_tpu_torch.ops import partition_kernel as pk
     dev = torch.device(DEVICE)
     s = grid_h * grid_w
+    n = batch or 1
     thr = 0.88
-    x0 = rng.standard_normal((s, d)).astype(np.float32)
-    cond = x0 + 0.35 * rng.standard_normal((s, d)).astype(np.float32)
-    blk = np.zeros((grid_h, grid_w), bool)
-    blk[grid_h // 8: grid_h // 2, grid_w // 8: grid_w // 2] = True
-    cond[blk.reshape(-1)] = rng.standard_normal(
-        (int(blk.sum()), d)).astype(np.float32)
+    x0 = rng.standard_normal((n, s, d)).astype(np.float32)
+    cond = x0 + 0.35 * rng.standard_normal((n, s, d)).astype(np.float32)
+    for i in range(n):
+        blk = np.zeros((grid_h, grid_w), bool)
+        blk[grid_h // 8: grid_h * (4 + i) // 8,
+            grid_w // 8: grid_w * (4 + i) // 8] = True
+        cond[i, blk.reshape(-1)] = rng.standard_normal(
+            (int(blk.sum()), d)).astype(np.float32)
+    if batch is None:
+        x0, cond = x0[0], cond[0]
     x0_t = torch.from_numpy(x0).to(dev)
     cond_t = torch.from_numpy(cond).to(dev)
     x64, c64 = x0.astype(np.float64), cond.astype(np.float64)
@@ -446,26 +466,36 @@ def check_partition(rng, grid_h, grid_w, d, iters):
     raw_ref = pk.partition_reference(*args, False)
     diff = (raw != raw_ref).cpu().numpy()
     ok = not (diff & ~near).any()
-    morph = pk.remove_scattered_points(raw.reshape(grid_h, grid_w))
-    ok = ok and bool((morph.reshape(-1) == full).all())
+    morph = pk.remove_scattered_points(raw.reshape(*raw.shape[:-1], grid_h,
+                                                   grid_w))
+    ok = ok and bool((morph.reshape(full.shape) == full).all())
     full_ref = pk.partition_reference(*args, True)
     n_diff = int((full_ref != full).sum())
     ok = ok and (n_diff == 0 or bool(near.any()))
+    alone = ""
+    if batch is not None:
+        same = [torch.equal(full[i], pk.fused_partition(
+            x0_t[i], cond_t[i], thr, grid_h, grid_w, True)) for i in range(n)]
+        ok = ok and all(same)
+        alone = (f", each image equal to its B = 1 launch "
+                 f"{'yes' if all(same) else f'NO {same}'}")
     ms = cuda_ms(lambda: pk.fused_partition(*args, True), iters)
     dev_ms = graph_ms(lambda: pk.fused_partition(*args, True), iters)
     pms = cuda_ms(lambda: pk.partition_reference(*args, True), iters)
     floor, floor_dev = launch_floor_ms(iters)
-    edited = int(full.sum())
-    label = f"K3 partition {grid_h}x{grid_w}x{d}"
-    log(f"{label}: edited {edited}/{s}, raw-mask differences "
+    edited = full.reshape(n, s).sum(-1).tolist()
+    label = f"K3 partition {grid_h}x{grid_w}x{d}" + (
+        f", batch {batch} in one launch" if batch is not None else "")
+    log(f"{label}: edited {edited} of {s}, raw-mask differences "
         f"{int(diff.sum())}, tokens within 1e-5 of the threshold "
-        f"{int(near.sum())}, final-mask differences {n_diff}; kernel "
+        f"{int(near.sum())}, final-mask differences {n_diff}{alone}; kernel "
         f"{ms:.4f} ms a call ({dev_ms:.4f} ms on the device, CUDA graph), "
         f"plain {pms:.4f} ms {'ok' if ok else 'FAIL'}")
-    # bound: two fp32 [S, d] inputs read, a bool [S] written; three dot
-    # products of d a token on the fp32 units.  No single library call
-    # computes the partition
-    bound_ms, bound_by = bound(6 * s * d, 2 * s * d * 4 + s, PEAK_FP32)
+    # bound: two fp32 [S, d] inputs read, a bool [S] written, each image;
+    # three dot products of d a token on the fp32 units.  No single
+    # library call computes the partition
+    bound_ms, bound_by = bound(6 * n * s * d, n * (2 * s * d * 4 + s),
+                               PEAK_FP32)
     log(f"{label}: bound {bound_ms:.5f} ms by {bound_by}; launch floor "
         f"{floor:.4f} ms a call of torch.zeros(1).zero_() ({floor_dev:.4f} "
         f"ms a zero_() on the device), {iters} calls; library none")
@@ -532,6 +562,14 @@ def phase_kernels(grid, qwen_grid):
         ok &= r["ok"]
         if gh == gw == grid:
             results["fused_partition"] = r
+    # K3 over a group of requests in one launch: B = 1, 2, 4 at 64 x 64 (4
+    # is the last batch of 8 x 8 tiles in one wave) and phase_serve's B = 3
+    # at grid 32
+    for b, g in ((1, 64), (2, 64), (4, 64), (3, grid)):
+        r = check_partition(rng, g, g, 64, iters=20, batch=b)
+        ok &= r["ok"]
+        if (b, g) == (3, grid):
+            results["fused_partition_batched"] = r
     if not ok:
         fail("a kernel disagrees with its plain version")
     return results
@@ -726,11 +764,12 @@ def check_sdpa_cached_alone():
 
 
 def structured_condition(pipe, sampler, re, grid, txt, pooled, rope, lat0,
-                         r, label):
+                         r, label, span=7):
     """bench.py's probe: the x0 estimate at the partition step with a block
     replaced by noise, so the adaptive partition is partial with random
-    weights (the block's 5x5 dilation covers ~25% of the grid).  Returns
-    the condition latent (numpy [1, S, C])."""
+    weights (the block, grid/16 to span * grid/16 on each axis, dilated
+    5x5: ~20% of the grid at span 7).  Returns the condition latent (numpy
+    [1, S, C])."""
     import torch
     from regione_tpu_torch.core.partition import select_edited_mask
     s, c_in = grid * grid, pipe.cfg.in_channels
@@ -745,7 +784,7 @@ def structured_condition(pipe, sampler, re, grid, txt, pooled, rope, lat0,
         v, _ = pipe.dense_forward(lat, part.sigma, None, ctx, False)
         return lat + part.dt_final * v
 
-    b0, b1 = grid // 16, grid * 7 // 16
+    b0, b1 = grid // 16, grid * span // 16
     block = np.zeros((grid, grid), bool)
     block[b0:b1, b0:b1] = True
     target = block.reshape(-1)
@@ -1029,9 +1068,17 @@ def _kernel_group(name: str) -> str:
 
 def phase_profile(name, pipe, ctx, lat0, grid, modes=(True, False)):
     """Device time by kernel group over one dense and one RegionE edit
-    (`modes`: dense_only of each edit profiled; torch.profiler's CUDA
+    (`modes`: dense_only of each edit profiled; `profile_run`)."""
+    for dense_only in modes:
+        profile_run(f"{name} {'dense' if dense_only else 'RegionE'} edit",
+                    lambda: pipe.edit_latents(lat0, ctx, grid, grid,
+                                              dense_only=dense_only))
+
+
+def profile_run(label, run):
+    """Device time by kernel group of `run()` (torch.profiler's CUDA
     trace), and the device's idle share: 1 - kernel time / host wall time
-    of the edit (one stream, kernels never overlap)."""
+    of the run (one stream, kernels never overlap)."""
     import os
 
     import torch
@@ -1040,35 +1087,262 @@ def phase_profile(name, pipe, ctx, lat0, grid, modes=(True, False)):
     from regione_tpu_torch.ops._build import BUILD_DIR
     trace_dir = BUILD_DIR.parent / "profile"     # inside the checkout
     trace_dir.mkdir(parents=True, exist_ok=True)
-    for dense_only in modes:
-        label = f"{name} {'dense' if dense_only else 'RegionE'}"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall = time.perf_counter() - t
+    path = str(trace_dir / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    groups, names = {}, {}
+    for ev in events:
+        if ev.get("cat") != "kernel":
+            continue
+        dur = float(ev.get("dur", 0.0)) / 1e6
+        groups[_kernel_group(ev["name"])] = groups.get(
+            _kernel_group(ev["name"]), 0.0) + dur
+        short = ev["name"][:70]
+        names[short] = names.get(short, 0.0) + dur
+    busy = sum(groups.values())
+    log(f"profile {label}: wall {wall:.3f}s (profiled), kernel time "
+        f"{busy:.3f}s, device idle share {1 - busy / wall:.3f}")
+    for g, sec in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"  {g}: {sec:.3f}s ({sec / busy:.3f} of kernel time)")
+    for n, sec in sorted(names.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {sec:.3f}s {n}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: serving
+# ---------------------------------------------------------------------------
+
+SERVE_PSNR_MIN = 40.0
+
+
+def phase_serve_latent(pipe, ctx0, grid, seeds=(110, 111, 112)):
+    """Serve (a), on phase 5's Step1X-Edit weights: three requests (one
+    per seed, each with `structured_condition`'s probe at its own block
+    size, so the partitions are partial and their edited counts differ),
+    each through `edit_latents`, then all three through
+    `edit_latents_batch` twice (warm, then timed).  Each image's
+    edited_tokens must equal its own edit's, at least two counts differ,
+    the capacity is the largest count's bucket, the latent PSNR against
+    the image's own edit >= 40 dB, K3 launches once for the group and K2
+    more than zero.  Logs the seconds per image and images/s both ways,
+    the peaks, the batched edit's profile, `memplan.plan`'s bytes beside
+    the card's (its cache bytes must equal what `init_cache` allocates),
+    and K2 at the group's RAGS shape.  Returns the timed batch's launch
+    counts and K2's record."""
+    import torch
+    from regione_tpu_torch.core.config import pick_capacity
+    from regione_tpu_torch.models.mmdit import init_cache
+    from regione_tpu_torch.utils import memplan
+    re, cfg = pipe.re, pipe.cfg
+    s = grid * grid
+    sampler = pipe.sampler_for(grid, grid, T_TXT, 2)
+    rope = (ctx0.rope_img, ctx0.rope_txt)
+    lats, ctxs, seq = [], [], []
+    for k, seed in enumerate(seeds):
+        label = f"serve (a) request {seed}"
+        r, lat0 = _request(cfg, seed, grid)
+        cond = structured_condition(pipe, sampler, re, grid, ctx0.txt,
+                                    ctx0.pooled, rope, lat0, r, label,
+                                    span=5 + 2 * k)
+        ctx = _ctx(ctx0.txt, ctx0.pooled, cond, rope)
+        out, stats, sec, counts, peak = timed_edit(pipe, lat0, ctx, grid)
+        log(f"{label}: edit_latents {sec:.3f} s, edited_tokens "
+            f"{stats.edited_tokens} capacity {stats.capacity}, launches "
+            f"{counts}, peak device memory {peak:.2f} GiB")
+        lats.append(lat0)
+        ctxs.append(ctx)
+        seq.append((out, stats, sec, peak))
+    n = len(seeds)
+    runs = []
+    for name in ("warm", "timed"):
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        outs, stats = pipe.edit_latents_batch(lats, ctxs, grid, grid)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        runs.append((outs, stats, sec, read_counts(),
+                     torch.cuda.max_memory_allocated() / 2**30))
+        log(f"serve (a) edit_latents_batch of {n} ({name}): {sec:.3f} s, "
+            f"launches {runs[-1][3]}, peak device memory "
+            f"{runs[-1][4]:.2f} GiB")
+    outs, stats, batch_s, counts, peak = runs[-1]
+    seq_s = sum(x[2] for x in seq)
+    log(f"serve (a) step1x grid {grid}, {n} requests: sequential "
+        f"{seq_s / n:.3f} s an image ({n / seq_s:.3f} images/s, peak "
+        f"{max(x[3] for x in seq):.2f} GiB), batched {batch_s / n:.3f} s an "
+        f"image ({n / batch_s:.3f} images/s, peak {peak:.2f} GiB): batched "
+        f"/ sequential time {batch_s / seq_s:.3f}")
+    problems = []
+    edited = [st.edited_tokens for st in stats]
+    want_cap = re.rags_capacity or pick_capacity(max(edited), s,
+                                                 re.capacity_granularity)
+    for i, (out, st) in enumerate(zip(outs, stats)):
+        ref, ref_st = seq[i][0], seq[i][1]
+        got = out.cpu().numpy()
+        p = psnr(ref, got)
+        log(f"serve (a) image {i}: edited_tokens {st.edited_tokens} (own "
+            f"edit {ref_st.edited_tokens}), capacity {st.capacity} (own "
+            f"{ref_st.capacity}), latent PSNR against its own edit "
+            f"{p:.2f} dB (min {SERVE_PSNR_MIN})")
+        if st.edited_tokens != ref_st.edited_tokens:
+            problems.append(f"image {i} edited {st.edited_tokens} vs "
+                            f"{ref_st.edited_tokens}")
+        if not (np.isfinite(got).all() and got.shape == ref.shape
+                and p >= SERVE_PSNR_MIN):
+            problems.append(f"image {i}: PSNR {p:.2f}, shape {got.shape}")
+    if len(set(edited)) < 2 or not all(0 < e < s for e in edited):
+        problems.append(f"edited counts {edited}: not partial and distinct")
+    if any(st.capacity != want_cap for st in stats):
+        problems.append(f"capacity {stats[0].capacity}, bucket {want_cap}")
+    if not (counts["fused_partition"] == 1 and counts["attention_rows2"] > 0
+            and counts["attention"] > 0
+            and counts["attention_rows2_quant"] == 0):
+        problems.append(f"launch counts {counts}")
+    if problems:
+        fail("serve (a): " + "; ".join(problems))
+    profile_run(f"serve (a) step1x edit_latents_batch of {n}",
+                lambda: pipe.edit_latents_batch(lats, ctxs, grid, grid))
+
+    # memplan's budget beside the card's bytes
+    plan = memplan.plan(cfg, grid=grid, t_txt=T_TXT, batch_cfg=2,
+                        cache="bf16", batch=n)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cache = init_cache(cfg, 2 * n, 2 * s, torch.device(DEVICE))
+    torch.cuda.synchronize()
+    cache_bytes = torch.cuda.memory_allocated() - before
+    del cache
+    weights = sum(p.numel() * p.element_size()
+                  for p in pipe.model.parameters())
+    log(f"serve (a) memplan of the model's config, grid {grid} t_txt "
+        f"{T_TXT} batch "
+        f"{n}: params {plan.param_bytes} B (the model's {weights} B), cache "
+        f"{plan.cache_bytes} B (init_cache allocated {cache_bytes} B), "
+        f"activations {plan.activation_bytes_est} B (estimate), total "
+        f"{plan.total_bytes / 2**30:.2f} GiB against a measured peak of "
+        f"{peak:.2f} GiB; card total_memory "
+        f"{torch.cuda.get_device_properties(0).total_memory} B, "
+        f"HBM_BYTES['h100'] {memplan.HBM_BYTES['h100']} B, fits "
+        f"{plan.fits('h100')}")
+    if plan.cache_bytes != cache_bytes or plan.param_bytes != weights:
+        fail("serve (a): memplan's bytes differ from the card's")
+
+    # K2 at this group's RAGS shape: 2n CFG rows, t_txt + capacity fresh
+    # rows over the 2 * grid^2-row cache
+    k2 = check_rows2(np.random.default_rng(12), 2 * n, cfg.heads, T_TXT,
+                     stats[0].capacity, 2 * s, iters=10)
+    if not k2["ok"]:
+        fail("serve (a): K2 disagrees with its plain version at the "
+             "group's shape")
+    return counts, k2
+
+
+def phase_serve_images(pipe, size, ref_image):
+    """Serve (b), on phase 6a's FLUX.1 Kontext pipeline: three requests
+    (two size x size images, one 1200 x 800: two geometry groups), after
+    one untimed request warms the 1200 x 800 geometry: each prepared then
+    denoised in turn (no overlap), then through `EditService.run` (the
+    next request prepared meanwhile) and `run_batched(max_batch=2)`; the
+    first two timed against each other say what the prefetch saves.  Each
+    output is uint8 at its input geometry, the groups have sizes 2 and 1,
+    the pixel PSNR of `run_batched` against `run` is >= 40 dB per request,
+    and the first
+    request (6a's image, prompt and seed) against 6a's own
+    `pipe(image, prompt, seed=3)` too.  Logs each request's latency_s,
+    prep_s, group_latency_s and stages.  Random weights leave the
+    partitions degenerate (all edited): logged, not failed.  Returns
+    `run_batched`'s launch counts."""
+    import torch
+    from regione_tpu_torch.pipelines.serve import (EditRequest, EditResult,
+                                                   EditService)
+    reqs = [EditRequest(image=structured_image(11, size, size),
+                        prompt=PROMPT, seed=3),
+            EditRequest(image=structured_image(12, size, size),
+                        prompt=PROMPT, seed=4),
+            EditRequest(image=structured_image(13, 800, 1200),
+                        prompt=PROMPT, seed=5)]
+    svc = EditService(pipe)
+
+    def unoverlapped():
+        """`run` without its prefetch: each request prepared, then
+        denoised and decoded, in turn on one thread and stream."""
+        out = []
+        for req in reqs:
+            prepared, prep_s = svc._prepare(req)
             t = time.perf_counter()
-            pipe.edit_latents(lat0, ctx, grid, grid, dense_only=dense_only)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        path = str(trace_dir / "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-        os.remove(path)
-        groups, names = {}, {}
-        for ev in events:
-            if ev.get("cat") != "kernel":
-                continue
-            dur = float(ev.get("dur", 0.0)) / 1e6
-            groups[_kernel_group(ev["name"])] = groups.get(
-                _kernel_group(ev["name"]), 0.0) + dur
-            short = ev["name"][:70]
-            names[short] = names.get(short, 0.0) + dur
-        busy = sum(groups.values())
-        log(f"profile {label} edit: wall {wall:.3f}s (profiled), kernel time "
-            f"{busy:.3f}s, device idle share {1 - busy / wall:.3f}")
-        for g, sec in sorted(groups.items(), key=lambda kv: -kv[1]):
-            log(f"  {g}: {sec:.3f}s ({sec / busy:.3f} of kernel time)")
-        for n, sec in sorted(names.items(), key=lambda kv: -kv[1])[:6]:
-            log(f"    {sec:.3f}s {n}")
+            img, stats = svc._denoise_decode(prepared)
+            out.append(EditResult(image=img, stats=stats,
+                                  latency_s=time.perf_counter() - t,
+                                  prep_s=prep_s,
+                                  stages=prepared.timer.as_dict()))
+        return out
+
+    svc.run(reqs[2:])       # warms the 1200 x 800 geometry (untimed)
+    outs, secs = {}, {}
+    for name, fn in (("prepare then denoise", unoverlapped),
+                     ("run", lambda: svc.run(reqs)),
+                     ("run_batched", lambda: svc.run_batched(reqs,
+                                                             max_batch=2))):
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs[name] = sec = time.perf_counter() - t
+        outs[name] = (res, read_counts())
+        log(f"serve (b) {name}: {sec:.3f} s for {len(reqs)} requests "
+            f"({len(reqs) / sec:.3f} images/s), launches {outs[name][1]}")
+        for i, r in enumerate(res):
+            st = r.stats
+            log(f"  request {i}: latency_s {r.latency_s:.3f} prep_s "
+                f"{r.prep_s:.3f} group_size {r.group_size} group_latency_s "
+                + (f"{r.group_latency_s:.3f}" if r.group_latency_s else "-")
+                + f" stages {({k: round(v, 3) for k, v in r.stages.items()})}"
+                f" edited_tokens {st.edited_tokens} / {st.seq_len} "
+                f"capacity {st.capacity} "
+                f"({'partial' if 0 < st.edited_tokens < st.seq_len else 'DEGENERATE'})"
+                f"; image {r.image.dtype} {r.image.shape}")
+    (seq, seq_counts), (bat, counts) = outs["run"], outs["run_batched"]
+    log(f"serve (b) prefetch: run {secs['run']:.3f} s against prepare then "
+        f"denoise {secs['prepare then denoise']:.3f} s (run / unoverlapped "
+        f"{secs['run'] / secs['prepare then denoise']:.3f}; the "
+        f"preparations took {sum(r.prep_s for r in seq):.3f} s in run); "
+        f"run_batched / run {secs['run_batched'] / secs['run']:.3f}")
+    problems = []
+    if [r.group_size for r in bat] != [2, 2, 1]:
+        problems.append(f"groups {[r.group_size for r in bat]}")
+    for i, (req, a, b) in enumerate(zip(reqs, seq, bat)):
+        shape = np.asarray(req.image).shape
+        p = pixel_psnr(a.image, b.image)
+        log(f"serve (b) request {i}: run_batched vs run pixel PSNR {p:.2f} "
+            f"dB (min {SERVE_PSNR_MIN}), max {int(np.abs(a.image.astype(int) - b.image).max())} levels")
+        for img in (a.image, b.image):
+            if img.dtype != np.uint8 or img.shape != shape:
+                problems.append(f"request {i}: {img.dtype} {img.shape}")
+        if not p >= SERVE_PSNR_MIN:
+            problems.append(f"request {i}: PSNR {p:.2f}")
+    p0 = pixel_psnr(ref_image, seq[0].image)
+    log(f"serve (b) request 0 vs 6a's pipe(image, prompt, seed=3): pixel "
+        f"PSNR {p0:.2f} dB, max {int(np.abs(ref_image.astype(int) - seq[0].image).max())} levels")
+    if not p0 >= SERVE_PSNR_MIN:
+        problems.append(f"run vs pipe(): PSNR {p0:.2f}")
+    if not (seq_counts["fused_partition"] == 3 and
+            counts["fused_partition"] == 2 and counts["attention"] > 0 and
+            counts["attention_rows2"] > 0):
+        problems.append(f"launch counts {seq_counts}, {counts}")
+    if problems:
+        fail("serve (b): " + "; ".join(problems))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1247,13 +1521,15 @@ def phase_qwen_image(model, size=512, vae_cfg=None):
 
 
 def phase_flux_image(preset="flux-kontext", vae_cfg=None, size=900):
-    """6a and 6c: FLUX.1 Kontext at full width through the image-level
-    entry points.  The CLI's `build_pipeline` builds the backbone (random
-    bf16 weights from --seed); 6a edits with it through a
-    `FluxKontextPipeline` holding the published-size AutoencoderKL; 6c runs
-    the CLI's `run_demo` on the CLI's own pipeline.  Returns the launch
-    counts of the timed RegionE call and of the CLI edit, and the kernel
-    checks at this path's shapes."""
+    """6a, serve (b) and 6c: FLUX.1 Kontext at full width through the
+    image-level entry points.  The CLI's `build_pipeline` builds the
+    backbone (random bf16 weights from --seed); 6a edits with it through a
+    `FluxKontextPipeline` holding the published-size AutoencoderKL, and
+    serve (b) serves three requests on that pipeline
+    (`phase_serve_images`); 6c runs the CLI's `run_demo` on the CLI's own
+    pipeline.  Returns the launch counts of the timed RegionE call, of
+    serve (b)'s `run_batched` and of the CLI edit, and the kernel checks at
+    this path's shapes."""
     import torch
     from PIL import Image
 
@@ -1328,6 +1604,9 @@ def phase_flux_image(preset="flux-kontext", vae_cfg=None, size=900):
         f" levels; AutoencoderKL encode {enc:.2f} ms, decode {dec:.2f} ms at "
         f"{width}x{height}; peak device memory {peak:.1f} GiB")
 
+    # serve (b): EditService on this pipeline, its first request 6a's
+    paths = {"serve_images": phase_serve_images(pipe, size, out)}
+
     # the denoise alone (the image call less prepare_inputs and the VAE
     # decode), profiled
     helper.enable()
@@ -1363,7 +1642,8 @@ def phase_flux_image(preset="flux-kontext", vae_cfg=None, size=900):
     if written.shape != shape or cli_counts["fused_partition"] != 1 or \
             cli_counts["attention"] == 0 or cli_counts["attention_rows2"] == 0:
         fail(f"6c: CLI output {written.shape} or launches {cli_counts}")
-    return counts, cli_counts, checks
+    paths.update(flux_image=counts, cli=cli_counts)
+    return paths, checks
 
 
 SRC = "regione_tpu_torch/csrc/attention_tma.cu"
@@ -1383,6 +1663,11 @@ KERNELS = {
                         "regione_tpu_torch/csrc/partition.cu",
                         "regione_tpu/ops/partition_kernel.py:30", "flux_image",
                         "fused_partition"),
+    "fused_partition_batched": ("K3 fused_partition, a group of 3 requests "
+                                "in one launch",
+                                "regione_tpu_torch/csrc/partition.cu",
+                                "regione_tpu/ops/partition_kernel.py:30",
+                                "serve_latent", "fused_partition"),
     "attention_long": ("K5 attention past 12,288 keys", SRC,
                        f"{JAX_FA}:157", "plus", "attention_long"),
     "attention_quant_int8": ("K6 attention_quant (int8)", SRC,
@@ -1419,9 +1704,14 @@ def main():
     t = time.perf_counter()
     paths["step1x"], (pipe, ctx, lat0) = phase_slice(grid)
     phase_profile("step1x", pipe, ctx, lat0, grid)
+    log(f"phase slice (step1x-edit) done in {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    paths["serve_latent"], checks["serve_rows2"] = phase_serve_latent(
+        pipe, ctx, grid)
     del pipe, ctx, lat0         # 24.6 GB of Step1X weights leave the card
     release()
-    log(f"phase slice (step1x-edit) done in {time.perf_counter() - t:.1f}s")
+    log(f"phase serve (a) (step1x-edit, a group of 3) done in "
+        f"{time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     qwen, model, qwen_checks = phase_qwen_slice(qwen_grid)
     paths.update({f"qwen_{k}": v for k, v in qwen.items()})
@@ -1436,11 +1726,12 @@ def main():
     log(f"phase 6b (qwen-image-edit __call__) done in "
         f"{time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    paths["flux_image"], paths["cli"], flux_checks = phase_flux_image()
+    flux_paths, flux_checks = phase_flux_image()
+    paths.update(flux_paths)
     checks.update(flux_checks)
     release()
-    log(f"phase 6a/6c (flux-kontext image path, CLI) done in "
-        f"{time.perf_counter() - t:.1f}s")
+    log(f"phase 6a/serve (b)/6c (flux-kontext image path, EditService, CLI) "
+        f"done in {time.perf_counter() - t:.1f}s")
 
     import torch
     record = []

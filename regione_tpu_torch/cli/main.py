@@ -32,16 +32,17 @@ import torch
 
 from regione_tpu_torch.utils.metadata import item_key, resolve_item
 
-# flag -> the ROADMAP queue-1 item its module waits for
+# flag -> the title of the ROADMAP queue-1 item its module waits for (by
+# title, not number: the queue is renumbered as items land)
 UNPORTED = {
-    "model_path": "item 11 (checkpoint loading)",
-    "int8": "item 8 (quantized weights)",
-    "int4": "item 8 (quantized weights)",
-    "act_int8": "item 8 (quantized weights)",
-    "quantize_mods": "item 8 (quantized weights)",
-    "int4_mods": "item 8 (quantized weights)",
-    "enable_thinking": "item 12 (the v1.2 thinker)",
-    "enable_reflection": "item 12 (the v1.2 thinker)",
+    "model_path": "checkpoint loading",
+    "int8": "quantized weights",
+    "int4": "quantized weights",
+    "act_int8": "quantized weights",
+    "quantize_mods": "quantized weights",
+    "int4_mods": "quantized weights",
+    "enable_thinking": "the v1.2 thinker",
+    "enable_reflection": "the v1.2 thinker",
 }
 
 
@@ -112,7 +113,8 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--quantize_mods", default=None, type=_flag)
     for action in ap._actions:
         if action.dest in UNPORTED:
-            action.help = f"not ported yet (ROADMAP {UNPORTED[action.dest]})"
+            action.help = (f"not ported yet (ROADMAP queue 1: "
+                           f"{UNPORTED[action.dest]})")
     return ap
 
 
@@ -157,7 +159,7 @@ def _refuse_unported(args):
         default = parser.get_default(flag)
         if getattr(args, flag, default) != default:
             raise SystemExit(f"--{flag} is not ported to regione_tpu_torch "
-                             f"yet (ROADMAP queue 1, {item})")
+                             f"yet (ROADMAP queue 1: {item})")
 
 
 def resolve_device(name) -> torch.device:

@@ -18,9 +18,16 @@ Latents stay full-length [B, S_noise, C] fp32; the RAGS phase gathers them
 to a fixed capacity with sentinel-padded ids (core.masking), and padded rows
 are re-zeroed every step.
 
+`sample_batch` edits a group of requests in one pass: the JAX package's
+`vmap` over requests becomes the batch axis written out, each image with
+its own partition, edited ids and cache rows, all at one capacity bucket
+(the largest count's), so each step launches the kernels of one image.
+
 Backends plug in with two hooks:
   dense_forward(lat [B,S,C] f32, sigma, cache, ctx, write) -> (v, cache)
-  rags_forward(lat_act [B,K,C] f32, sigma, cache, ids [K], ctx) -> (v, cache)
+  rags_forward(lat_act [B,K,C] f32, sigma, cache, ids, ctx) -> (v, cache)
+with ids [K] (`sample`: one partition for the batch) or [B, K]
+(`sample_batch`: one per image).
 """
 
 from __future__ import annotations
@@ -40,7 +47,8 @@ from regione_tpu_torch.core.schedule import (
     plan_segments,
 )
 from regione_tpu_torch.core import masking
-from regione_tpu_torch.core.partition import select_edited_mask
+from regione_tpu_torch.core.partition import (select_edited_mask,
+                                              select_edited_masks)
 
 
 @dataclasses.dataclass
@@ -129,6 +137,42 @@ class RegionESampler:
         return lat, stats
 
     @torch.inference_mode()
+    def sample_batch(self, latents0_b, cond_b, ctx_b, forced_masks=None):
+        """Edit B images at once, each with its own partition: the JAX
+        package's `sample_batch` (its `vmap` over requests) with the batch
+        axis written out.  latents0_b / cond_b: [B, S_noise, C], one image
+        per row; ctx_b: the images' inputs stacked by the pipeline
+        (`EditPipelineBase.edit_latents_batch`); `forced_masks` [B, S]
+        overrides the partitions.  One K3 launch partitions the group, and
+        one host sync reads the B edited counts; the group shares the
+        capacity bucket of the largest count (a pinned `rags_capacity`
+        truncates each image's ids to it, as the JAX package's
+        `mask_to_padded_ids` does, and leaves the masks as they are).
+        Returns (latents [B, S, C] fp32, one SampleStats per image: its own
+        edited_tokens, the shared capacity)."""
+        s_noise = latents0_b.shape[1]
+        if self.re.warmup_step > 1:
+            lat = self._warm(latents0_b, ctx_b)
+        else:
+            lat = latents0_b.float().clone()
+        lat, mask, ids_sorted, cache = self._part(
+            lat, cond_b, ctx_b, forced_masks, per_image=True)
+        counts = mask.sum(-1).tolist()   # THE one host sync: B counts
+        cap = self.re.rags_capacity or pick_capacity(
+            max(counts), s_noise, self.re.capacity_granularity)
+        # each row: its edited ids ascending, then ids _rest pads with the
+        # sentinel (mask_to_padded_ids of the row's mask, on the device)
+        lat, _ = self._rest(lat, ids_sorted[:, :cap], mask, cache, ctx_b)
+        if self._sms_steps:
+            lat = self._sms(lat, ctx_b)
+        return lat, [SampleStats(
+            edited_tokens=int(c), capacity=cap, seq_len=s_noise,
+            reuse_steps=sum(sp.reuse for sp in self.plan),
+            dense_steps=sum(sp.dense for sp in self.plan),
+            rags_steps=sum(not sp.dense for sp in self.plan))
+            for c in counts]
+
+    @torch.inference_mode()
     def sample_dense(self, latents0, ctx):
         """Vanilla dense Euler over the whole plan, through the same
         model hook."""
@@ -149,9 +193,11 @@ class RegionESampler:
         return self._dense_steps(latents.float(),
                                  self.plan[: self.re.warmup_step - 1], ctx)
 
-    def _part(self, latents, cond_latent, ctx, forced_mask=None):
-        """Partition split-step: one cache-writing forward, the edited mask,
-        and the edited/unedited split step."""
+    def _part(self, latents, cond_latent, ctx, forced_mask=None,
+              per_image=False):
+        """Partition split-step: one cache-writing forward, the edited mask
+        ([S]; per_image: [B, S], one per image), and the edited/unedited
+        split step.  Returns the masks' edited-first id orders beside."""
         part = self.plan[self.re.warmup_step - 1]
         assert part.sched_role == SCHED_PARTITION
         lat = latents.float()
@@ -162,7 +208,8 @@ class RegionESampler:
         if forced_mask is not None:
             mask = forced_mask.to(device=lat.device, dtype=torch.bool)
         else:
-            mask = select_edited_mask(
+            select = select_edited_masks if per_image else select_edited_mask
+            mask = select(
                 x0, cond_latent.float(), self.re.threshold,
                 grid_h=self.grid_h, grid_w=self.grid_w,
                 erosion_dilation=self.re.erosion_dilation,
@@ -173,7 +220,8 @@ class RegionESampler:
                                  lat + part.dt_jump * v)
         # edited ids first, ascending (stable sort of ~mask; torch sorts no
         # bool, hence the cast)
-        ids_sorted = torch.argsort((~mask).to(torch.int8), stable=True)
+        ids_sorted = torch.argsort((~mask).to(torch.int8), dim=-1,
+                                   stable=True)
         return lat, mask, ids_sorted.to(torch.int32), cache
 
     # ------------------------------------------------------------------
@@ -205,11 +253,12 @@ class RegionESampler:
     def _rest(self, lat, ids, mask, cache, ctx):
         s_noise = lat.shape[1]
         # sentinel-pad on the device: slots past the edited count become
-        # s_noise (an identity for host-built, already padded id sets)
-        count = mask.sum()
-        slot = torch.arange(ids.shape[0], device=ids.device)
+        # s_noise (an identity for host-built, already padded id sets); ids
+        # [K] with mask [S], or one row each per image
+        count = mask.sum(-1, keepdim=True)
+        slot = torch.arange(ids.shape[-1], device=ids.device)
         ids = torch.where(slot < count, ids, s_noise).to(torch.int32)
-        valid = (ids < s_noise)[None, :, None].float()
+        valid = (ids < s_noise)[..., None].float()
         segs, _ = self._segments
         avd_full = torch.zeros_like(lat)
         for si, (kind, steps) in enumerate(segs):

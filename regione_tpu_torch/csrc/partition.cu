@@ -6,21 +6,27 @@
 //   mask = sim <= threshold
 //   optional 3x3-cross erosion then 5x5-square dilation, out-of-grid = 0
 //   -> uint8 0/1 [S], S = grid_h * grid_w
+// for each of a batch of images in the same launch (a group of requests,
+// each with its own partition: the JAX package runs the kernel under `vmap`
+// over them).
 //
 // What bounds it on an H100: bytes, 2 * S * d * 4 read and S written (2 MB
 // at a 64 x 64 grid of d = 64: 0.6 us at 3.35 TB/s); at the grids of real
 // images, in practice, the launch and one round trip to memory.  The design
 // spreads the work over the card and keeps to one round trip:
-// - One CTA per output tile, a 2-D launch of ceil(gw / TW) x ceil(gh / TH)
-//   CTAs.  With morphology a CTA thresholds its tile plus a halo of 3 cells
+// - One CTA per output tile, a launch of ceil(gw / TW) x ceil(gh / TH) x B
+//   CTAs: blockIdx.z is the image, whose inputs start `stride` floats past
+//   the previous image's and whose mask starts S bytes past it.  Images
+//   share nothing, so the batch only adds CTAs.  With morphology a CTA thresholds its tile plus a halo of 3 cells
 //   (1 for the erosion, 2 for the dilation), erodes the tile plus 2, and
 //   dilates the tile; without, it thresholds the tile alone.  Window cells
 //   outside the grid are 0 (the zero padding of `lax.conv` 'same').  The
 //   byte maps live in static shared memory sized by the tile (at most 884
 //   bytes), never by S, so no grid is too large.
-// - The tile adapts to the grid.  8 x 8 tiles while they fit in one wave
-//   (kOneWave CTAs: two 512-thread CTAs on each of an H100's 132 SMs; 64 at
-//   grid 64), which spreads small grids over the most SMs; past that 16 x 16
+// - The tile adapts to the grid and the batch.  8 x 8 tiles while those of
+//   all B images fit in one wave (kOneWave CTAs: two 512-thread CTAs on each
+//   of an H100's 132 SMs; 64 an image at grid 64), which spreads small grids
+//   over the most SMs; past that 16 x 16
 //   tiles, which cut the halo's rereads (mostly from L2) from 3.1x the
 //   tile's tokens to 1.9x, the cost that sets the pace at large grids.
 // - Memory-level parallelism instead of a serial walk: 16 lanes reduce one
@@ -34,7 +40,9 @@
 //   order with explicit fmas, then a fixed xor tree over the 16 lanes, so
 //   every CTA whose window holds the token, of either tile size, reaches
 //   the same decision, and one tile's morphology agrees with its
-//   neighbours'.
+//   neighbours'.  So an image's mask does not depend on the batch it came
+//   in (nor on the tile size the batch picked): bit for bit its B = 1
+//   mask.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -129,17 +137,25 @@ __device__ void threshold_window(const float* __restrict__ x0,
   }
 }
 
+// Two CTAs an SM (at most 64 registers a thread): the batch's stride and
+// image offset otherwise take ptxas to 86 registers on the float4 path and
+// one CTA an SM, 0.0179 against 0.0142 ms at 256 x 256
+// (scripts/torch_partition_variants.py, "min_blocks_2").
 template <int kTileH, int kTileW, bool kVec>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 partition_kernel(const float* __restrict__ x0, const float* __restrict__ cond,
                  float threshold, int grid_h, int grid_w, int d,
-                 int erosion_dilation, uint8_t* __restrict__ out) {
+                 int erosion_dilation, long long stride,
+                 uint8_t* __restrict__ out) {
   constexpr int kWinH = kTileH + 2 * kHalo;  // thresholded window
   constexpr int kWinW = kTileW + 2 * kHalo;
   constexpr int kEroH = kTileH + 4;          // eroded cells around the tile
   constexpr int kEroW = kTileW + 4;
   __shared__ uint8_t mask[kWinH * kWinW];
   __shared__ uint8_t eroded[kEroH * kEroW];
+  x0 += blockIdx.z * stride;                 // this CTA's image
+  cond += blockIdx.z * stride;
+  out += blockIdx.z * ((long long)grid_h * grid_w);
   const int i0 = blockIdx.y * kTileH;        // the tile's first grid cell
   const int j0 = blockIdx.x * kTileW;
   const int halo = erosion_dilation ? kHalo : 0;
@@ -182,28 +198,36 @@ partition_kernel(const float* __restrict__ x0, const float* __restrict__ cond,
 
 template <int kTileH, int kTileW>
 void launch(const float* x0, const float* cond, float threshold, int grid_h,
-            int grid_w, int d, int erosion_dilation, uint8_t* out, bool vec,
-            cudaStream_t stream) {
+            int grid_w, int d, int erosion_dilation, int batch,
+            long long stride, uint8_t* out, bool vec, cudaStream_t stream) {
   const dim3 grid((grid_w + kTileW - 1) / kTileW,
-                  (grid_h + kTileH - 1) / kTileH);
+                  (grid_h + kTileH - 1) / kTileH, batch);
   if (vec)
     partition_kernel<kTileH, kTileW, true><<<grid, kThreads, 0, stream>>>(
-        x0, cond, threshold, grid_h, grid_w, d, erosion_dilation, out);
+        x0, cond, threshold, grid_h, grid_w, d, erosion_dilation, stride,
+        out);
   else
     partition_kernel<kTileH, kTileW, false><<<grid, kThreads, 0, stream>>>(
-        x0, cond, threshold, grid_h, grid_w, d, erosion_dilation, out);
+        x0, cond, threshold, grid_h, grid_w, d, erosion_dilation, stride,
+        out);
 }
 
 }  // namespace
 
-// x0, cond: fp32 [grid_h * grid_w, d], dense.  out: uint8 [grid_h * grid_w].
-// Any grid and any d >= 1; float4 loads where d % 4 == 0 and both inputs
-// lie on 16 bytes.  One launch.  Returns cudaGetLastError().
+// x0, cond: fp32 [batch, grid_h * grid_w, d], image b starting b * stride
+// floats in (stride >= grid_h * grid_w * d; dense rows).  out: uint8
+// [batch, grid_h * grid_w].  Any grid, any d >= 1, 1 <= batch <= 65535;
+// float4 loads where d and stride are multiples of 4 and both inputs lie
+// on 16 bytes.  One launch.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a batch the launch cannot hold.
 extern "C" int regione_partition_fwd(const void* x0, const void* cond,
                                      float threshold, int grid_h, int grid_w,
-                                     int d, int erosion_dilation, void* out,
+                                     int d, int erosion_dilation, int batch,
+                                     long long stride, void* out,
                                      void* stream) {
-  const bool vec = d % 4 == 0 &&
+  if (batch < 1 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = d % 4 == 0 && stride % 4 == 0 &&
       ((reinterpret_cast<uintptr_t>(x0) | reinterpret_cast<uintptr_t>(cond))
        & 15) == 0;
   const auto* x = static_cast<const float*>(x0);
@@ -211,12 +235,12 @@ extern "C" int regione_partition_fwd(const void* x0, const void* cond,
   auto* o = static_cast<uint8_t*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
   const long long small_tiles =
-      (long long)((grid_h + 7) / 8) * ((grid_w + 7) / 8);
+      (long long)((grid_h + 7) / 8) * ((grid_w + 7) / 8) * batch;
   if (small_tiles <= kOneWave)
-    launch<8, 8>(x, c, threshold, grid_h, grid_w, d, erosion_dilation, o, vec,
-                 s);
+    launch<8, 8>(x, c, threshold, grid_h, grid_w, d, erosion_dilation, batch,
+                 stride, o, vec, s);
   else
-    launch<16, 16>(x, c, threshold, grid_h, grid_w, d, erosion_dilation, o,
-                   vec, s);
+    launch<16, 16>(x, c, threshold, grid_h, grid_w, d, erosion_dilation,
+                   batch, stride, o, vec, s);
   return static_cast<int>(cudaGetLastError());
 }

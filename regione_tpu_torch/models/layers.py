@@ -142,25 +142,34 @@ def _rotate_pairs(x):
 
 
 def apply_rope(x, rope):
-    """x [..., S, D]; rope (cos, sin) each [S, D].  fp32 rotation."""
+    """x [B, H, S, D]; rope (cos, sin) each [S, D] (shared) or [B, S, D]
+    (one table per batch row, broadcast over the heads).  fp32 rotation."""
     cos, sin = rope
+    if cos.dim() == 3:
+        cos, sin = cos[:, None], sin[:, None]
     xf = x.float()
     return (xf * cos + _rotate_pairs(xf) * sin).to(x.dtype)
 
 
 def concat_rope(a, b):
-    return torch.cat([a[0], b[0]], 0), torch.cat([a[1], b[1]], 0)
+    """Tables of [a's rows ‖ b's rows]; a shared [T, D] table `a` (text) is
+    broadcast to the batch of a per-row [B, S, D] table `b` (image)."""
+    def cat(x, y):
+        if x.dim() < y.dim():
+            x = x.expand(y.shape[0], -1, -1)
+        return torch.cat([x, y], -2)
+    return cat(a[0], b[0]), cat(a[1], b[1])
 
 
 def gather_rope(rope, ids):
-    """Rope rows by padded ids; ids >= S read zeros (the JAX `mode='fill'`
-    gather) through a zero sink row appended at index S."""
+    """Rope rows by padded ids [K] -> [K, D], or per-row ids [B, K] ->
+    [B, K, D]; ids >= S read zeros (the JAX `mode='fill'` gather) through a
+    zero sink row appended at index S."""
     cos, sin = rope
     s = cos.shape[0]
-    idx = torch.clamp(ids, max=s)
+    idx = torch.clamp(ids, max=s).long()
     zero = cos.new_zeros((1, cos.shape[1]))
-    return (torch.cat([cos, zero], 0).index_select(0, idx),
-            torch.cat([sin, zero], 0).index_select(0, idx))
+    return torch.cat([cos, zero], 0)[idx], torch.cat([sin, zero], 0)[idx]
 
 
 # ---------------------------------------------------------------------------

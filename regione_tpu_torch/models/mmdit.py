@@ -285,20 +285,23 @@ def _store_kv(cfg: MMDiTConfig, cache, key: str, i: int, x):
 
 def rags_bias(sel_img_ids, s_kv: int, t_txt: int, batch: int, txt_bias):
     """[B, 1, 1, t_txt + cap + s_kv] key bias of a RAGS step: keys are
-    [txt ‖ edited (fresh) ‖ cached image rows].  Pad slots (id == s_kv) and
-    the stale cache rows at edited ids are -1e30; the stale-row scatter drops
-    the sentinel through a sink column at index s_kv."""
-    cap, device = sel_img_ids.shape[0], sel_img_ids.device
+    [txt ‖ edited (fresh) ‖ cached image rows].  `sel_img_ids` is [cap]
+    (shared by the batch) or [B, cap] (one id set per row: a group of
+    requests, each with its own partition).  Pad slots (id == s_kv) and
+    each row's stale cache rows at its edited ids are -1e30; the stale-row
+    scatter drops the sentinel through a sink column at index s_kv."""
+    ids = sel_img_ids.expand(batch, -1) if sel_img_ids.dim() == 1 \
+        else sel_img_ids
+    device = ids.device
     if txt_bias is not None:
         base_txt = txt_bias[:, 0, 0, :t_txt].float()
         base_img = txt_bias[:, 0, 0, t_txt:].float()
     else:
         base_txt = torch.zeros((batch, t_txt), device=device)
         base_img = torch.zeros((batch, s_kv), device=device)
-    fresh = torch.where(sel_img_ids < s_kv, 0.0, NEG_INF).float()
-    fresh = fresh[None].expand(batch, cap)
+    fresh = torch.where(ids < s_kv, 0.0, NEG_INF).float()
     stale = torch.zeros((batch, s_kv + 1), device=device)
-    stale[:, torch.clamp(sel_img_ids, max=s_kv).long()] = NEG_INF
+    stale.scatter_(1, torch.clamp(ids, max=s_kv).long(), NEG_INF)
     return torch.cat([base_txt, fresh, base_img + stale[:, :s_kv]],
                      dim=-1)[:, None, None, :]
 
@@ -339,8 +342,9 @@ class MMDiT(nn.Module):
         """img [B, T_img, C]; txt [B, T_txt, txt_in_dim]; t [B] sigma in
         the model dtype; guidance [B] fp32 (FLUX's distilled guidance scale,
         embedded like a timestep); rope_* (cos, sin) over the img / txt rows.
-        In rags mode T_img == cap and `sel_img_ids` [cap] maps rows into the
-        cache (sentinel s_kv for pad slots).  Returns (v [B, T_img, C_out],
+        In rags mode T_img == cap and `sel_img_ids` [cap] (or [B, cap], one
+        id set per batch row, with rope_img then [B, cap, dh] tables) maps
+        rows into the cache (sentinel s_kv for pad slots).  Returns (v [B, T_img, C_out],
         cache); write mode fills `cache` in place (zeroed if None)."""
         cfg, dt = self.cfg, self.cfg.dtype
         if mode == MODE_WRITE and cache is None:

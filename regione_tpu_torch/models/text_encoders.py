@@ -5,7 +5,7 @@ Only `MockTextEncoder` so far: the port's own copy of the class in
 pseudo-features for tests, benches and runs without the encoders'
 checkpoints, equal to the JAX one for the same prompt and image
 (tests/test_torch_core_config.py).  The real encoders (Qwen2.5-VL, T5 +
-CLIP) wait for ROADMAP queue 1, item 10.
+CLIP) wait for the ROADMAP queue-1 item "the real prompt encoders".
 
 Interface: encode(prompt, image=None) -> (embeds [1, T, D] fp32, pooled
 [1, P] fp32 | None, mask [1, T] bool), all numpy; encoding runs once per

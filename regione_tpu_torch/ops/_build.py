@@ -36,10 +36,11 @@ FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the entry points (csrc/*.cu)
 _SIGNATURES = {
     "regione_attention_tma_fwd": [_P] * 10 + [_I] * 6 + [_F, _P],
-    "regione_partition_fwd": [_P, _P, _F, _I, _I, _I, _I, _P, _P],
+    "regione_partition_fwd": [_P, _P, _F, _I, _I, _I, _I, _I, _L, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

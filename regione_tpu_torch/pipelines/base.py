@@ -11,7 +11,12 @@ Counterpart of `regione_tpu/pipelines/base.py`.  Latent path:
     backbone, combined by `combine_cfg`; FLUX's distilled guidance scale
     rides in `EditInputs.guidance`;
   * `edit_latents` runs the dense baseline when `RegionEHelper.disable()`
-    has cleared `_regione_enabled`.
+    has cleared `_regione_enabled`;
+  * `edit_latents_batch` edits a group of same-geometry requests in one
+    batched denoise (`RegionESampler.sample_batch`).  Under CFG the group's
+    rows are [pos_0 ... pos_{B-1}, neg_0 ... neg_{B-1}], the order
+    `_expand_cfg` (cat([x, x])) and `_combine` (chunk(2)) assume, and the
+    cache rows follow it.
 Image path (`prepare_inputs`, `__call__`): the target resolution policy,
 the VAE encode of every reference, the prompt embeddings of both CFG halves
 (padded to one length, the padding masked by a -1e9 text bias), the initial
@@ -165,7 +170,9 @@ class EditPipelineBase:
         return self._combine(v[:, :s_noise], sigma), cache
 
     def rags_forward(self, lat_act, sigma, cache, ids, ctx: EditInputs):
-        """Gathered edited-token forward against the frozen KV cache."""
+        """Gathered edited-token forward against the frozen KV cache; ids
+        [K] (one partition) or [B, K] (one per image, expanded with the
+        CFG rows)."""
         img_in = self._expand_cfg(lat_act.to(self.cfg.dtype))
         t = self._timestep(img_in.shape[0], sigma, lat_act.device)
         # the sampler pads ids with s_noise, which is a REAL cache row (the
@@ -174,6 +181,8 @@ class EditPipelineBase:
         s_noise = ctx.s_noise or ctx.cond_latent.shape[1]
         s_kv = s_noise + ctx.cond_latent.shape[1]
         ids_cache = torch.where(ids < s_noise, ids, s_kv)
+        if ids_cache.dim() == 2:
+            ids_cache = self._expand_cfg(ids_cache)
         rope_act = gather_rope(ctx.rope_img, ids_cache)
         v, cache = self.model(
             img_in, ctx.txt, t, rope_act, ctx.rope_txt, pooled=ctx.pooled,
@@ -223,6 +232,68 @@ class EditPipelineBase:
             return sampler.sample_dense(latents0, ctx), None
         return sampler.sample(latents0, ctx.cond_latent[:, :s_noise], ctx,
                               forced_mask=forced_mask, timed=timed)
+
+    @torch.inference_mode()
+    def edit_latents_batch(self, latents_list, ctx_list, grid_h: int,
+                           grid_w: int, forced_masks=None, mesh=None):
+        """Edit B same-geometry images in one batched denoise
+        (`RegionESampler.sample_batch`): the images share the weights, the
+        rope tables and one capacity bucket; each keeps its own partition,
+        edited ids and cache rows.  latents_list: B tensors [1, S_noise, C];
+        ctx_list: B `EditInputs` (from `prepare_inputs` or built by hand)
+        with equal shapes and rope tables; forced_masks: None or B masks
+        [S].  Returns (B latents [1, S, C] fp32, B SampleStats).
+
+        `mesh` (the JAX package's request axis across chips) waits for the
+        ROADMAP queue-1 item `parallel/sharding`; it must be None."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "edit_latents_batch(mesh=...): spreading a group over cards "
+                "waits for the port of parallel/sharding (ROADMAP queue 1, "
+                "`parallel/sharding.py`)")
+        if not len(latents_list) == len(ctx_list) >= 1:
+            raise ValueError(f"{len(latents_list)} latents for "
+                             f"{len(ctx_list)} inputs")
+        c0 = ctx_list[0]
+        # the whole group rides c0's rope tables: equal-length condition
+        # sequences with other grid decompositions (Plus references) would
+        # denoise with wrong positional ids
+        ref = (*c0.rope_img, *c0.rope_txt)
+        for c in ctx_list[1:]:
+            got = (*c.rope_img, *c.rope_txt)
+            if not all(map(torch.equal, got, ref)):
+                raise ValueError(
+                    "edit_latents_batch: requests with differing rope "
+                    "tables (condition grid decomposition / tags) cannot "
+                    "share a batch; group them by rope content first "
+                    "(EditService.run_batched does)")
+
+        def stack(name):
+            """The group's rows of a per-request field of Bc rows ([pos;
+            neg] under CFG): all images' row 0, then all images' row 1."""
+            vals = [getattr(c, name) for c in ctx_list]
+            if vals[0] is None:
+                return None
+            return torch.cat([v[k:k + 1] for k in range(vals[0].shape[0])
+                              for v in vals])
+
+        s_noise = latents_list[0].shape[1]
+        cond = torch.cat([c.cond_latent for c in ctx_list])
+        ctx_b = EditInputs(txt=stack("txt"), cond_latent=cond,
+                           rope_img=c0.rope_img, rope_txt=c0.rope_txt,
+                           pooled=stack("pooled"), guidance=stack("guidance"),
+                           txt_bias=stack("txt_bias"), s_noise=s_noise)
+        group = len(ctx_list)
+        sampler = self.sampler_for(
+            grid_h, grid_w, ctx_b.txt.shape[1],
+            group * (2 if self.do_cfg else 1), s_cond=cond.shape[1])
+        lat_b = torch.cat([torch.as_tensor(x) for x in latents_list])
+        fm = None
+        if forced_masks is not None:
+            fm = torch.stack([torch.as_tensor(m) for m in forced_masks])
+        out, stats = sampler.sample_batch(lat_b, cond[:, :s_noise], ctx_b,
+                                          forced_masks=fm)
+        return [out[i:i + 1] for i in range(group)], stats
 
     # -- image-level API ------------------------------------------------------
 
@@ -407,6 +478,16 @@ class EditPipelineBase:
                            dtype=torch.float32)
 
     @torch.inference_mode()
+    def decode_latents(self, lat, grid_h: int, grid_w: int) -> np.ndarray:
+        """Latents [1, S, C] -> the decoded image, float [H, W, 3] in
+        [0, 1] on the host."""
+        vae_dev = next(self.vae.parameters()).device
+        z = unpack_latents(lat.float().to(vae_dev), grid_h, grid_w)
+        img = self.vae.decode(self.vae.denormalize_latents(z))
+        img = torch.clamp(img.float() * 0.5 + 0.5, 0.0, 1.0)
+        return img[0].permute(1, 2, 0).cpu().numpy()
+
+    @torch.inference_mode()
     def __call__(self, image, prompt: str, negative_prompt: str | None = None,
                  width: int | None = None, height: int | None = None,
                  seed: int = 0, guidance_scale: float | None = None,
@@ -430,11 +511,7 @@ class EditPipelineBase:
         lat0 = self.initial_latents(
             seed, (1, grid_h * grid_w, self.cfg.in_channels))
         lat, stats = self.edit_latents(lat0, ctx, grid_h, grid_w)
-        vae_dev = next(self.vae.parameters()).device
-        z = unpack_latents(lat.float().to(vae_dev), grid_h, grid_w)
-        img = self.vae.decode(self.vae.denormalize_latents(z))
-        img = torch.clamp(img.float() * 0.5 + 0.5, 0.0, 1.0)
-        img = img[0].permute(1, 2, 0).cpu().numpy()
+        img = self.decode_latents(lat, grid_h, grid_w)
         if (resize_to_input and not explicit_size
                 and (in_w, in_h) != (width, height)):
             img = np.clip(self._resize(img, in_w, in_h), 0.0, 1.0)

@@ -12,18 +12,21 @@ Each variant is a copy of `regione_tpu_torch/csrc/*.cu` under
 
   kernel       the source as it is (8 x 8 tiles up to two CTAs on each of
                132 SMs, 16 x 16 past that; 4 tokens a lane group loads at
-               once; 512 threads);
+               once; 512 threads, two CTAs an SM);
   tiles_8x8, tiles_16x16   one tile size at every grid;
   large_16x32  16 x 32 tiles where the source takes 16 x 16;
   batch_2, batch_8   2 or 8 tokens a group loads before it reduces;
-  threads_256  256 threads a CTA.
+  threads_256  256 threads a CTA;
+  one_block   `__launch_bounds__(512)`: no register cap (86 registers on
+               the float4 path, one CTA an SM).
 
 Every variant must give the source's masks bit for bit (a token's
 arithmetic does not depend on the tile).  With `--parent DIR` (a checkout
 of an earlier commit, e.g. unpacked by `git archive`), DIR's `csrc/` is
 built as "parent" and launched through DIR's own wrapper, timed first and
 last (parent, kernel, variants, kernel, parent); where that wrapper refuses
-a grid, its error is printed.
+a grid, its error is printed.  The parent's library is bound with the
+parent's own C signatures (its `ops/_build.py`).
 
 Shapes: fp32 [grid, 64] pairs with morphology at grids 32, 64, 96, 128,
 160, 256, 48 x 80, 37 x 53 and 173 x 181.  Per variant and shape: `call`
@@ -65,6 +68,8 @@ VARIANTS = {
     "batch_2": [_const("kBatch", 4, 2)],
     "batch_8": [_const("kBatch", 4, 8)],
     "threads_256": [_const("kThreads", 512, 256)],
+    "one_block": [("__launch_bounds__(kThreads, 2)",
+                   "__launch_bounds__(kThreads)")],
 }
 
 
@@ -112,7 +117,7 @@ def main():
 
     own = _build.sources()
     order = list(VARIANTS) + ["kernel"]
-    wrapper = {}
+    wrapper, signatures = {}, {}
     if args.parent is not None:
         order = ["parent"] + order + ["parent"]
         spec = importlib.util.spec_from_file_location(
@@ -120,8 +125,16 @@ def main():
             args.parent / "regione_tpu_torch" / "ops" / "partition_kernel.py")
         wrapper["parent"] = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(wrapper["parent"])
+        spec = importlib.util.spec_from_file_location(
+            "parent_build",
+            args.parent / "regione_tpu_torch" / "ops" / "_build.py")
+        parent_build = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(parent_build)
+        signatures["parent"] = parent_build._SIGNATURES
+    own_signatures = _build._SIGNATURES
     want = {}
     for name in order:
+        _build._SIGNATURES = signatures.get(name, own_signatures)
         if name == "parent":
             log = build_variant(name, [], "partition.cu", sorted(
                 (args.parent / "regione_tpu_torch" / "csrc").glob("*.cu")))

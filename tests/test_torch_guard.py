@@ -49,7 +49,8 @@ bad = [m for m in ("jax", "jaxlib", "triton", "regione_tpu")
        if m in sys.modules]
 new = {"regione_tpu_torch.models.vae", "regione_tpu_torch.models.vae_wan",
        "regione_tpu_torch.pipelines.flux_kontext",
-       "regione_tpu_torch.cli.main"}
+       "regione_tpu_torch.cli.main", "regione_tpu_torch.pipelines.serve",
+       "regione_tpu_torch.utils.telemetry", "regione_tpu_torch.utils.memplan"}
 print(len(names), sorted(new - set(names)) + bad)
 """
 
@@ -140,6 +141,9 @@ def test_cpu_tensors_take_the_plain_path():
     x = torch.randn(16, 8)
     assert torch.equal(pk.fused_partition(x, -x, 0.0, 4, 4),
                        pk.partition_reference(x, -x, 0.0, 4, 4))
+    xb = torch.randn(3, 16, 8)
+    assert torch.equal(pk.fused_partition(xb, -xb, 0.0, 4, 4),
+                       pk.partition_reference(xb, -xb, 0.0, 4, 4))
     assert _launch_counts() == (0,) * 6
 
 
@@ -159,9 +163,10 @@ def test_no_fallback_on_a_device_without_kernels():
                                                   sc)):
         with pytest.raises(ValueError, match="no attention kernel"):
             call()
-    x = torch.empty(16, 8, device="meta")
-    with pytest.raises(ValueError, match="no partition kernel"):
-        pk.fused_partition(x, x, 0.0, 4, 4)
+    for shape in ((16, 8), (3, 16, 8)):
+        x = torch.empty(shape, device="meta")
+        with pytest.raises(ValueError, match="no partition kernel"):
+            pk.fused_partition(x, x, 0.0, 4, 4)
 
 
 def test_missing_nvcc_is_a_clear_error(monkeypatch, tmp_path):

@@ -7,7 +7,9 @@ morphology.  `select_edited_mask` is held against the JAX one (its XLA path
 on the CPU, which normalises before the dot) with inputs kept at least 1e-4
 away from the threshold, so the two cosine formulas cannot flip a token.
 Masks compare exactly; similarities to 1e-5 (fp32 reductions in another
-order).
+order).  The batched forms (a group of requests, one partition each, as
+the JAX package runs them under `vmap`) are held image by image against
+the JAX functions of one image.
 """
 
 import numpy as np
@@ -110,6 +112,106 @@ def test_select_edited_mask_matches_jax(kind, threshold, grid,
     assert 0 < want.sum() < gh * gw
 
 
+def _batch(gh, gw, d, seed, n=3):
+    """n images' (x0, cond) pairs [n, S, d], each with its own edited
+    share (the first third, half, two thirds of its tokens re-drawn)."""
+    rng = np.random.default_rng(seed)
+    s = gh * gw
+    x0 = rng.standard_normal((n, s, d)).astype(np.float32)
+    cond = x0 + 0.3 * rng.standard_normal((n, s, d)).astype(np.float32)
+    for i in range(n):
+        k = s * (i + 1) // (n + 1)
+        cond[i, :k] = rng.standard_normal((k, d)).astype(np.float32)
+    return x0, cond
+
+
+@pytest.mark.parametrize("kind,threshold", [("cosine", 0.9),
+                                            ("euclidean", 0.5)])
+@pytest.mark.parametrize("grid", [8, (5, 7)], ids=str)
+@pytest.mark.parametrize("erosion_dilation", [False, True])
+def test_batched_masks_match_jax_per_image(kind, threshold, grid,
+                                           erosion_dilation):
+    """`select_edited_masks` over B = 3 images equals the JAX package's
+    `select_edited_mask` of each image alone (the euclidean rescale by the
+    image's own min and max, as under `vmap`); for cosine, the batched
+    plain K3 equals the Pallas kernel (interpret mode) per image."""
+    gh, gw = _hw(grid)
+    x0, cond = _batch(gh, gw, 16, 7)
+    if kind == "cosine":
+        cond = np.stack([_keep_away(a, c, threshold)
+                         for a, c in zip(x0, cond)])
+    kw = dict(grid_h=gh, grid_w=gw, erosion_dilation=erosion_dilation,
+              similarity_type=kind)
+    got = tpart.select_edited_masks(torch.from_numpy(x0),
+                                    torch.from_numpy(cond), threshold, **kw)
+    assert got.shape == (3, gh * gw) and got.dtype == torch.bool
+    counts = got.sum(-1).tolist()
+    assert len(set(counts)) > 1, counts
+    for i in range(3):
+        want = np.asarray(jpart.select_edited_mask(
+            jnp.asarray(x0[i:i + 1]), jnp.asarray(cond[i:i + 1]), threshold,
+            **kw))
+        np.testing.assert_array_equal(got[i].numpy(), want,
+                                      err_msg=f"image {i}")
+    if kind == "cosine":
+        plain = pk.partition_reference(torch.from_numpy(x0),
+                                       torch.from_numpy(cond), threshold,
+                                       gh, gw, erosion_dilation)
+        for i in range(3):
+            want = np.asarray(j_fused(jnp.asarray(x0[i]),
+                                      jnp.asarray(cond[i]), threshold, gh,
+                                      gw, erosion_dilation, interpret=True))
+            np.testing.assert_array_equal(plain[i].numpy(), want)
+
+
+def test_euclidean_rescales_each_image_by_its_own_range():
+    """An image's euclidean similarities do not move when another image of
+    the batch has a wider range (the JAX function sees one image at a
+    time)."""
+    x0, cond = _batch(8, 8, 16, 8, n=2)
+    cond[1] *= 10.0
+    both = tpart.token_similarity(torch.from_numpy(x0),
+                                  torch.from_numpy(cond), "euclidean")
+    alone = tpart.token_similarity(torch.from_numpy(x0[:1]),
+                                   torch.from_numpy(cond[:1]), "euclidean")
+    torch.testing.assert_close(both[:1], alone)
+
+
+def test_batched_masking_matches_jax_per_image():
+    """gather / scatter / where over per-image ids [B, K] and masks [B, S]
+    equal the JAX functions of each image's own ids (pads read 0, dropped)."""
+    rng = np.random.default_rng(9)
+    s, cap = 10, 6
+    masks = np.zeros((3, s), bool)
+    masks[0, [1, 4, 7]] = True
+    masks[1, [0, 2, 3, 5, 8, 9]] = True
+    ids = np.stack([tmask.mask_to_padded_ids(m, cap) for m in masks])
+    x = rng.standard_normal((3, s, 4)).astype(np.float32)
+    y = rng.standard_normal((3, s, 4)).astype(np.float32)
+    vals = rng.standard_normal((3, cap, 4)).astype(np.float32)
+    tids = torch.from_numpy(ids)
+    gathered = tmask.gather_rows(torch.from_numpy(x), tids)
+    scattered = tmask.scatter_rows(torch.from_numpy(x), tids,
+                                   torch.from_numpy(vals))
+    picked = tmask.where_rows(torch.from_numpy(masks), torch.from_numpy(x),
+                              torch.from_numpy(y))
+    for i in range(3):
+        jids = jnp.asarray(ids[i])
+        np.testing.assert_array_equal(
+            gathered[i:i + 1].numpy(),
+            np.asarray(jmask.gather_rows(jnp.asarray(x[i:i + 1]), jids)))
+        np.testing.assert_array_equal(
+            scattered[i:i + 1].numpy(),
+            np.asarray(jmask.scatter_rows(jnp.asarray(x[i:i + 1]), jids,
+                                          jnp.asarray(vals[i:i + 1]))))
+        np.testing.assert_array_equal(
+            picked[i:i + 1].numpy(),
+            np.asarray(jmask.where_rows(jnp.asarray(masks[i]),
+                                        jnp.asarray(x[i:i + 1]),
+                                        jnp.asarray(y[i:i + 1]))))
+    assert not gathered[2].any()          # image 2: no edited token
+
+
 def test_morphology_matches_jax():
     """The port's shifted min/max morphology equals JAX's conv form."""
     rng = np.random.default_rng(3)
@@ -194,3 +296,30 @@ def test_kernel_scalar_loads_match_plain_on_the_card(cuda_device, layout):
     xs, cs = (buf[start:].view(gh * gw, d) for buf in (xs, cs))
     assert (xs.data_ptr() % 16 != 0) == (layout == "unaligned")
     _held_on_the_card(xs, cs, _cos64(x0, cond), 0.9, gh, gw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2, 4])
+def test_batched_kernel_matches_plain_on_the_card(cuda_device, batch):
+    """One launch for B images at 64 x 64 x 64 (B = 4 fills the one-wave
+    budget of 8 x 8 tiles; B = 5 would take 16 x 16): each image's mask
+    equals its own B = 1 launch bit for bit, and the plain version's."""
+    x0, cond = _batch(64, 64, 64, 10, n=batch)
+    xs = torch.from_numpy(x0).to(cuda_device)
+    cs = torch.from_numpy(cond).to(cuda_device)
+    pk.fused_partition.launches = 0
+    got = pk.fused_partition(xs, cs, 0.9, 64, 64, True)
+    assert pk.fused_partition.launches == 1 and got.shape == (batch, 4096)
+    for i in range(batch):
+        alone = _held_on_the_card(xs[i], cs[i], _cos64(x0[i], cond[i]), 0.9,
+                                  64, 64)
+        assert torch.equal(got[i], alone), f"image {i}"
+    # past the one-wave budget (16 x 16 tiles); a ragged grid
+    for (gh, gw), b in (((64, 64), 5), ((37, 53), 2)):
+        x0, cond = _batch(gh, gw, 64, 11, n=b)
+        xs = torch.from_numpy(x0).to(cuda_device)
+        cs = torch.from_numpy(cond).to(cuda_device)
+        got = pk.fused_partition(xs, cs, 0.9, gh, gw, True)
+        for i in range(b):
+            assert torch.equal(got[i], pk.fused_partition(xs[i], cs[i], 0.9,
+                                                          gh, gw, True))
