@@ -33,7 +33,12 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
      launch counts, the plan statistics, the timings and the latent PSNR of
      RegionE against dense; then its device time by kernel group
      (torch.profiler) and the device's idle share;
-  7. serving (a), on phase 5's weights: three requests with partial
+  4q. the quantized weight formats (int8 weight-only, W8A8, int4 with int4
+     modulations) on phase 4's Step1X, FLUX and Qwen topologies at hidden
+     512, card bf16 against CPU fp32 on the same `quantize_params` codes;
+     then `torch._int_mm` at each W8A8 shape they ran, bit for bit against
+     the exact int32 product (on the card and on the CPU);
+  serve (a), on phase 5's weights: three requests with partial
      partitions of different sizes, each through `edit_latents`, then as
      one group through `edit_latents_batch` (one K3 launch, one capacity):
      per-image counts, latent PSNR of batched against single >= 40 dB,
@@ -42,8 +47,9 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
   5b. the Qwen-Image-Edit slice at full published width and depth (60
      double blocks, 20.4 B parameters, random bf16 weights) at its native
      1024 x 1024 (grid 64): one request, its dense edit, the int8-cache
-     RegionE edit twice (warm, then timed), then the int4- and the
-     bf16-cache RegionE edits on the same weights; the profiles of the
+     RegionE edit (once: its warm repeat was cut to keep the run near 800
+     s), then the int4- and the bf16-cache RegionE edits on the same
+     weights; the profiles of the
      dense, the int8 and the bf16 RegionE edit; K2q (int8, int4) and K2 at
      this path's shape (t_txt + capacity fresh rows over the cache);
   6. the image-level path (image in, image out), fp32 VAEs with cuDNN's
@@ -61,12 +67,35 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
          `RegionEHelper.disable()`, pixel PSNR of RegionE against dense;
          the denoise's profile; then K1, K2 and K3 at this path's shapes
          against their plain versions;
-     7b. serving (b), on 6a's pipeline: `EditService.run` and
+     serve (b), on 6a's pipeline: `EditService.run` and
          `run_batched(max_batch=2)` over two 900 x 900 requests and one
          1200 x 800 (two geometry groups): uint8 outputs at the input
          geometry, pixel PSNR of batched against single >= 40 dB, and
          `run` against 6a's `pipe(image, prompt, seed=3)`;
-     6c. the CLI's `run_demo` on that pipeline, writing demo_0.png.
+     6c. the CLI's `run_demo` on that pipeline, writing demo_0.png;
+  8. the JAX package's full-size weight formats at full width and depth:
+     8b. (run on phase 5b's weights, after 6b) Qwen-Image-Edit with int4
+         weights and int4 modulations, quantized in place, and the int4
+         cache, at grid 64: a dense and a RegionE latent edit of 5b's
+         request;
+     8a. (after 6a) FLUX.1 Kontext W8A8 with the int8 cache, built by the
+         CLI's `build_pipeline(--int8 --act_int8)`: a dense and a RegionE
+         `pipe(image, prompt)` of 6a's request; then `torch._int_mm` at
+         each of its W8A8 shapes;
+     each with its speedup, plan statistics, peak memory, the weights'
+     bytes beside memplan's (equal), the PSNR of RegionE against dense
+     (>= 30 dB) and against the bf16-weight edit of the same request;
+  7. checkpoint loading at full width, depth cut to 2 double and 4 single
+     blocks (Qwen 2 double; Step1X with its 2-block connector): FLUX,
+     Step1X and Qwen models with their published-size VAEs written as
+     diffusers-layout bf16 safetensors under build/ckpt/, loaded through
+     `build_pipeline(--model_path)` (bytes, seconds, GB/s), each loaded
+     edit equal to the in-memory model's bit for bit; a quantized model
+     round-tripped through `checkpoint.save` / `mmdit_from_checkpoint`;
+  9. the real prompt encoder: the port's synthetic Qwen2.5-VL checkpoint
+     through `QwenVLPromptEncoder` on the card against the CPU, then a
+     `pipe(image, prompt)` of a small Qwen topology through `--model_path`
+     with that text_encoder/.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is the kernels' JSON record, the last line the
 device record.  Imports no JAX and nothing of the JAX package: the port
@@ -628,13 +657,16 @@ def _ctx(txt, pooled, cond, rope):
 
 
 def card_vs_cpu(label, cfg, pipe_cls, re, grid, t_txt, forced,
-                cond_grids=None):
+                cond_grids=None, quant=None):
     """One forced-mask edit of a small model on the CPU in fp32 (the plain
     versions, held against the JAX package by the CPU tests) and on the
     card in bf16 (the kernels), same weights and inputs: equal stats,
-    latent PSNR >= 30 dB.  Returns the card run's launch counts."""
+    latent PSNR >= 30 dB.  `quant`: `quantize_params` flags applied to the
+    CPU model, whose codes and scales the card model takes as they are
+    (its other tensors in bf16).  Returns the card run's launch counts."""
     import torch
     from regione_tpu_torch.models.mmdit import MMDiT
+    from regione_tpu_torch.ops.quant import quantize_params, quantized_shells
     from regione_tpu_torch.weights.from_jax import init_params
     card_cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
     if cfg.connector is not None:
@@ -642,13 +674,18 @@ def card_vs_cpu(label, cfg, pipe_cls, re, grid, t_txt, forced,
             cfg.connector, dtype=torch.bfloat16))
     ref_model = init_params(cfg, torch.Generator().manual_seed(1),
                             device="cpu")
+    if quant is not None:
+        quantize_params(ref_model, **quant)
     card_model = MMDiT(card_cfg, torch.device(DEVICE)).eval()
+    quantized_shells(card_model, ref_model.state_dict())
     card_model.load_state_dict(ref_model.state_dict())
     s = grid * grid
     s_cond = sum(h * w for h, w in cond_grids) if cond_grids else s
     txt_dim = cfg.connector.in_dim if cfg.connector else cfg.txt_in_dim
     rng = np.random.default_rng(5)
-    txt = rng.standard_normal((2, t_txt, txt_dim)).astype(np.float32)
+    bc = 2 if pipe_cls.uses_batch_cfg else 1
+    txt = rng.standard_normal((bc, t_txt, txt_dim)).astype(np.float32)
+    pooled = rng.standard_normal((bc, cfg.pooled_dim)).astype(np.float32)
     cond = 0.5 * rng.standard_normal((1, s_cond, cfg.in_channels)).astype(
         np.float32)
     lat0 = rng.standard_normal((1, s, cfg.in_channels)).astype(np.float32)
@@ -656,8 +693,13 @@ def card_vs_cpu(label, cfg, pipe_cls, re, grid, t_txt, forced,
     for model in (ref_model, card_model):
         pipe = pipe_cls(model, re)
         dev = pipe.device
-        ctx = _ctx(torch.from_numpy(txt).to(dev, model.cfg.dtype), None, cond,
-                   pipe.build_rope(grid, grid, t_txt, cond_grids))
+        ctx = _ctx(torch.from_numpy(txt).to(dev, model.cfg.dtype),
+                   torch.from_numpy(pooled).to(dev, model.cfg.dtype)
+                   if cfg.pooled_dim and cfg.connector is None else None,
+                   cond, pipe.build_rope(grid, grid, t_txt, cond_grids))
+        if cfg.guidance_embed:
+            ctx = dataclasses.replace(ctx, guidance=torch.full(
+                (bc,), 2.5, device=dev))
         reset_counts()
         out, stats = pipe.edit_latents(
             torch.from_numpy(lat0).to(dev), ctx, grid, grid,
@@ -972,13 +1014,15 @@ def phase_qwen_slice(grid, preset="qwen-image-edit"):
     """Qwen-Image-Edit at full width and depth on the card, random bf16
     weights, batch-2 CFG at scale 4 with the norm-preserving combine, the
     Qwen knobs, at grid `grid` (64: the native 1024 x 1024): one request,
-    its dense edit, the int8-cache RegionE edit twice (warm, then timed),
+    its dense edit, the int8-cache RegionE edit,
     then the int4- and the bf16-cache RegionE edits on the same weights and
     request (only the config's cache flags change); the profiles of the
     dense and the int8 RegionE edit, and of the bf16 RegionE edit (the
     control for the quantized formats); then the RAGS kernels at this
     path's shape.  Returns {cache format: launch counts}, the model (int8
-    cache) and the kernels' records at this path's shape."""
+    cache), the kernels' records at this path's shape and the request with
+    its bf16-weight edits (lat0, ctx, dense latents, the int4-cache RegionE
+    latents) for phase 8b."""
     import torch
     from regione_tpu_torch.core.config import DEFAULT_PARAMS
     from regione_tpu_torch.models.presets import get_config
@@ -1012,7 +1056,7 @@ def phase_qwen_slice(grid, preset="qwen-image-edit"):
         pipe, lat0, ctx, grid, dense_only=True)
     log(f"{label}: dense_s {dense_s:.3f}, launches {dense_counts}, peak "
         f"device memory {dense_peak:.1f} GiB")
-    formats = (("int8 warm", {}), ("int8", {}),
+    formats = (("int8", {}),
                ("int4", dict(cache_int8=False, cache_int4=True)),
                ("bf16", dict(cache_int8=False)))
     counts, outs, secs = {}, {}, {}
@@ -1041,7 +1085,8 @@ def phase_qwen_slice(grid, preset="qwen-image-edit"):
     phase_profile(f"{label} bf16", QwenImageEditPipeline(model, re), ctx,
                   lat0, grid, modes=(False,))
     model.cfg = cfg
-    del pipe, ctx, lat0
+    request = (lat0, ctx, dense, outs["int4"])
+    del pipe
     release()
     # K2q and K2 at this path's shape: t_txt + capacity fresh rows over the
     # 2 * grid^2-row cache, batch 2, the model's heads
@@ -1052,7 +1097,7 @@ def phase_qwen_slice(grid, preset="qwen-image-edit"):
                                 ("qwen_rows2_bf16", 16))}
     if not all(r["ok"] for r in checks.values()):
         fail("a kernel disagrees with its plain version at the Qwen shapes")
-    return counts, model, checks
+    return counts, model, checks, request
 
 
 def _kernel_group(name: str) -> str:
@@ -1528,8 +1573,8 @@ def phase_flux_image(preset="flux-kontext", vae_cfg=None, size=900):
     serve (b) serves three requests on that pipeline
     (`phase_serve_images`); 6c runs the CLI's `run_demo` on the CLI's own
     pipeline.  Returns the launch counts of the timed RegionE call, of
-    serve (b)'s `run_batched` and of the CLI edit, and the kernel checks at
-    this path's shapes."""
+    serve (b)'s `run_batched` and of the CLI edit, the kernel checks at
+    this path's shapes, and 6a's timed RegionE image (uint8, for 8a)."""
     import torch
     from PIL import Image
 
@@ -1643,7 +1688,722 @@ def phase_flux_image(preset="flux-kontext", vae_cfg=None, size=900):
             cli_counts["attention"] == 0 or cli_counts["attention_rows2"] == 0:
         fail(f"6c: CLI output {written.shape} or launches {cli_counts}")
     paths.update(flux_image=counts, cli=cli_counts)
-    return paths, checks
+    return paths, checks, out
+
+
+# ---------------------------------------------------------------------------
+# phase 4q: the quantized weight formats, small, card against CPU
+# ---------------------------------------------------------------------------
+
+# the weight formats of the JAX package's full-size records: the flags of
+# `quantize_params` and `MMDiTConfig.act_int8`
+WEIGHT_FORMATS = {
+    "int8": (dict(), False),
+    "w8a8": (dict(quantize_mods=True), True),
+    "int4": (dict(quantize_mods=True, bits=4, int4_mods=True), False),
+}
+# (M, K, N) of the card's `layers.int_mm` calls, by path (`record_int_mm`)
+INT_MM_SHAPES: dict[str, set] = {}
+
+
+def record_int_mm(path: str):
+    """From here on, record under `path` the (M, K, N) of every
+    `layers.int_mm` call on the card: the W8A8 shapes that path runs."""
+    from regione_tpu_torch.models import layers
+    inner = getattr(layers.int_mm, "inner", layers.int_mm)
+    shapes = INT_MM_SHAPES.setdefault(path, set())
+
+    def recording(x8, w_q):
+        if x8.is_cuda:
+            shapes.add((x8.numel() // x8.shape[-1], x8.shape[-1],
+                        w_q.shape[0]))
+        return inner(x8, w_q)
+
+    recording.inner = inner
+    layers.int_mm = recording
+
+
+def check_int_mm(label, shapes, rows=16):
+    """`layers.int_mm` (torch._int_mm; fewer than 17 rows padded) on the
+    card at each (M, K, N), random int8 codes, bit for bit: every row
+    against an exact product on the card (fp32 GEMMs, TF32 off, over K
+    chunks of 1024, so every partial sum of int8 products stays below 2^24
+    and is exact) and `rows` rows against the CPU's int32 product; beside
+    each, its time and a bf16 GEMM's of the same shape (CUDA events)."""
+    import torch
+    from regione_tpu_torch.models import layers
+    int_mm = getattr(layers.int_mm, "inner", layers.int_mm)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=DEVICE).manual_seed(9)
+    ok = True
+    for m, k, n in sorted(shapes):
+        a, w = (torch.randint(-127, 128, shape, generator=g, device=DEVICE,
+                              dtype=torch.int8) for shape in ((m, k), (n, k)))
+        got = int_mm(a, w)
+        exact = torch.zeros((m, n), dtype=torch.int32, device=DEVICE)
+        for k0 in range(0, k, 1024):
+            exact += (a[:, k0:k0 + 1024].float()
+                      @ w[:, k0:k0 + 1024].float().t()).to(torch.int32)
+        idx = torch.linspace(0, m - 1, min(m, rows), device=DEVICE).long()
+        cpu = int_mm(a[idx].cpu(), w.cpu())
+        good = torch.equal(got, exact) and torch.equal(got[idx].cpu(), cpu)
+        ok &= good
+        ab, wb = a.bfloat16(), w.bfloat16()
+        ms = cuda_ms(lambda: int_mm(a, w), iters=5)
+        bf = cuda_ms(lambda: ab @ wb.t(), iters=5)
+        log(f"{label}: int_mm [{m},{k}] x [{k},{n}]{' (padded to 17 rows)' if m < 17 else ''} "
+            f"{'equal' if good else 'DIFFERENT'} to the exact product on "
+            f"the card and to the CPU's int32 product ({min(m, rows)} rows); "
+            f"{ms:.3f} ms, a bf16 GEMM {bf:.3f} ms")
+        del a, w, ab, wb, got, exact
+    if not ok:
+        fail(f"{label}: torch._int_mm on the card is not the exact int32 "
+             f"product")
+
+
+def phase_small_quantized():
+    """4q: phase 4's two-block head_dim-128 topologies, Step1X (with its
+    connector), FLUX (guidance embed, pooled vector) and Qwen (txt_norm), at
+    hidden 512 (4 heads of 128, so the projections reach the 512-wide
+    reduction int4 takes), each in the three weight formats of
+    WEIGHT_FORMATS (int8 weight-only, W8A8 with the modulations, int4 with
+    int4 modulations): card bf16 against CPU fp32 on the same
+    `quantize_params` codes (`card_vs_cpu`); then `int_mm` at every W8A8
+    shape these edits ran on the card.  Returns the card runs' launch
+    counts."""
+    import torch
+    from regione_tpu_torch.core.config import RegionEParams
+    from regione_tpu_torch.models.connector import ConnectorConfig
+    from regione_tpu_torch.models.mmdit import MMDiTConfig
+    from regione_tpu_torch.pipelines.flux_kontext import FluxKontextPipeline
+    from regione_tpu_torch.pipelines.qwen_image_edit import (
+        QwenImageEditPipeline)
+    from regione_tpu_torch.pipelines.step1x_edit import Step1XEditPipeline
+    record_int_mm("4q")
+    small = dict(hidden=512, heads=4, head_dim=128, depth_double=2,
+                 time_embed_dim=64, mlp_ratio=2.0, in_channels=16,
+                 out_channels=16, dtype=torch.float32)
+    conn = ConnectorConfig(in_dim=64, hidden=512, heads=4, depth=1,
+                           pooled_dim=32, time_embed_dim=64,
+                           dtype=torch.float32)
+    topologies = {
+        "step1x": (MMDiTConfig(depth_single=2, txt_in_dim=512, pooled_dim=32,
+                               connector=conn, **small), Step1XEditPipeline),
+        "flux": (MMDiTConfig(depth_single=2, txt_in_dim=64, pooled_dim=32,
+                             guidance_embed=True, **small),
+                 FluxKontextPipeline),
+        "qwen": (MMDiTConfig(depth_single=0, txt_in_dim=64, pooled_dim=0,
+                             txt_norm=True, **small), QwenImageEditPipeline),
+    }
+    forced = np.zeros((8, 8), bool)
+    forced[1:5, 2:7] = True
+    re = RegionEParams(capacity_granularity=16)
+    counts = {}
+    for topo, (cfg, pipe_cls) in topologies.items():
+        for fmt, (flags, act) in WEIGHT_FORMATS.items():
+            c = card_vs_cpu(f"4q {topo} topology, {fmt} weights",
+                            dataclasses.replace(cfg, act_int8=act), pipe_cls,
+                            re, 8, 16, forced, quant=flags)
+            if not (c["attention"] > 0 and c["attention_rows2"] > 0):
+                fail(f"4q {topo} {fmt}: launch counts {c}")
+            counts[f"{topo}_{fmt}"] = c
+    check_int_mm("4q", INT_MM_SHAPES["4q"])
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 7: checkpoint loading at full width
+# ---------------------------------------------------------------------------
+
+def diffusers_transformer_state(model, naming: str) -> dict:
+    """The port's MMDiT state dict under diffusers' tensor names, the
+    inverse of `weights.convert`: naming "flux" (FluxTransformer2DModel),
+    "step1x" (its time_embed / vec_embed embedders and the connector, whose
+    q / k / v are one fused self_attn_qkv) or "qwen"
+    (QwenImageTransformer2DModel's img_in / txt_in / img_mod.1 / img_mlp
+    ...)."""
+    import torch
+    sd, cfg, out = model.state_dict(), model.cfg, {}
+    q = naming == "qwen"
+
+    def lin(src, dst):
+        out[f"{dst}.weight"] = sd[f"{src}.weight"]
+        out[f"{dst}.bias"] = sd[f"{src}.bias"]
+
+    def embed(src, dst):
+        lin(f"{src}.in_", f"{dst}.linear_1")
+        lin(f"{src}.out", f"{dst}.linear_2")
+
+    step1x = naming == "step1x"
+    lin("x_embedder", "img_in" if q else "x_embedder")
+    lin("txt_in", "txt_in" if q else "context_embedder")
+    if cfg.txt_norm:
+        out["txt_norm.weight"] = sd["txt_norm.scale"]
+    embed("time_in", "time_embed" if step1x
+          else "time_text_embed.timestep_embedder")
+    if cfg.pooled_dim:
+        embed("vector_in", "vec_embed" if step1x
+              else "time_text_embed.text_embedder")
+    if cfg.guidance_embed:
+        embed("guidance_in", "time_text_embed.guidance_embedder")
+    lin("final_proj", "proj_out")
+    for leaf in ("weight", "bias"):     # [shift, scale] -> [scale, shift]
+        t = sd[f"final_mod.{leaf}"]
+        out[f"norm_out.linear.{leaf}"] = torch.cat(
+            [t[t.shape[0] // 2:], t[:t.shape[0] // 2]])
+    attn = {"img_attn": ("to_q", "to_k", "to_v", "to_out.0", "norm_q",
+                         "norm_k"),
+            "txt_attn": ("add_q_proj", "add_k_proj", "add_v_proj",
+                         "to_add_out", "norm_added_q", "norm_added_k")}
+    for i in range(cfg.depth_double):
+        s, d = f"double_blocks.{i}", f"transformer_blocks.{i}"
+        lin(f"{s}.img_mod", f"{d}.img_mod.1" if q else f"{d}.norm1.linear")
+        lin(f"{s}.txt_mod",
+            f"{d}.txt_mod.1" if q else f"{d}.norm1_context.linear")
+        for stream, names in attn.items():
+            for name, n in zip(("q", "k", "v", "out"), names):
+                lin(f"{s}.{stream}.{name}", f"{d}.attn.{n}")
+            out[f"{d}.attn.{names[4]}.weight"] = sd[
+                f"{s}.{stream}.norm_q.scale"]
+            out[f"{d}.attn.{names[5]}.weight"] = sd[
+                f"{s}.{stream}.norm_k.scale"]
+        for stream, n in (("img_mlp", "img_mlp" if q else "ff"),
+                          ("txt_mlp", "txt_mlp" if q else "ff_context")):
+            lin(f"{s}.{stream}.in_", f"{d}.{n}.net.0.proj")
+            lin(f"{s}.{stream}.out", f"{d}.{n}.net.2")
+    inner = cfg.inner
+    for i in range(cfg.depth_single):
+        s, d = f"single_blocks.{i}", f"single_transformer_blocks.{i}"
+        lin(f"{s}.mod", f"{d}.norm.linear")
+        for leaf in ("weight", "bias"):
+            t = sd[f"{s}.linear1.{leaf}"]
+            for k, n in enumerate(("attn.to_q", "attn.to_k", "attn.to_v")):
+                out[f"{d}.{n}.{leaf}"] = t[k * inner:(k + 1) * inner]
+            out[f"{d}.proj_mlp.{leaf}"] = t[3 * inner:]
+        lin(f"{s}.linear2", f"{d}.proj_out")
+        out[f"{d}.attn.norm_q.weight"] = sd[f"{s}.norm_q.scale"]
+        out[f"{d}.attn.norm_k.weight"] = sd[f"{s}.norm_k.scale"]
+    if cfg.connector is not None:
+        c = "connector."
+        lin("connector.in_proj", f"{c}S.input_embedder")
+        lin("connector.t_embed.in_", f"{c}S.t_embedder.mlp.0")
+        lin("connector.t_embed.out", f"{c}S.t_embedder.mlp.2")
+        embed("connector.c_embed", f"{c}S.c_embedder")
+        lin("connector.global_proj", f"{c}global_proj_out")
+        out[f"{c}scale_factor"] = sd["connector.scale_factor"]
+        for i in range(cfg.connector.depth):
+            s = f"connector.blocks.{i}"
+            d = f"{c}S.individual_token_refiner.blocks.{i}"
+            for n in ("norm1", "norm2"):
+                out[f"{d}.{n}.weight"] = sd[f"{s}.{n}.scale"]
+                out[f"{d}.{n}.bias"] = sd[f"{s}.{n}.bias"]
+            for leaf in ("weight", "bias"):
+                out[f"{d}.self_attn_qkv.{leaf}"] = torch.cat(
+                    [sd[f"{s}.attn.{x}.{leaf}"] for x in "qkv"])
+            lin(f"{s}.attn.out", f"{d}.self_attn_proj")
+            lin(f"{s}.mlp.in_", f"{d}.mlp.fc1")
+            lin(f"{s}.mlp.out", f"{d}.mlp.fc2")
+            lin(f"{s}.mod", f"{d}.adaLN_modulation.1")
+    return out
+
+
+def diffusers_vae_state(vae) -> tuple[dict, dict]:
+    """The port's VAE under diffusers' names and its config.json, the
+    inverse of `weights.convert`: AutoencoderKL, or AutoencoderKLWan (each
+    2-D kernel becomes a causal 3-D one whose last time tap it is, zeros
+    before; the down / up blocks one flattened list of residual and
+    resample blocks)."""
+    import torch
+    from regione_tpu_torch.models.vae_wan import WanVAEConfig
+    sd, cfg, out = vae.state_dict(), vae.cfg, {}
+    wan = isinstance(cfg, WanVAEConfig)
+
+    def conv(s, d):
+        w = sd[f"{s}.weight"]
+        if wan and not s.endswith(("downsample", "upsample")):
+            w3 = w.new_zeros(w.shape[:2] + (w.shape[-1],) + w.shape[2:])
+            w3[:, :, -1] = w
+            w = w3
+        out[f"{d}.weight"], out[f"{d}.bias"] = w, sd[f"{s}.bias"]
+
+    def norm(s, d):
+        if wan:
+            out[f"{d}.gamma"] = sd[f"{s}.gamma"].reshape(-1, 1, 1, 1)
+        else:
+            out[f"{d}.weight"], out[f"{d}.bias"] = sd[f"{s}.scale"], \
+                sd[f"{s}.bias"]
+
+    def resnet(s, d):
+        norm(f"{s}.norm1", f"{d}.norm1")
+        conv(f"{s}.conv1", f"{d}.conv1")
+        norm(f"{s}.norm2", f"{d}.norm2")
+        conv(f"{s}.conv2", f"{d}.conv2")
+        if f"{s}.shortcut.weight" in sd:
+            conv(f"{s}.shortcut", f"{d}.conv_shortcut")
+
+    def mid(s, d):
+        resnet(f"{s}.res1", f"{d}.resnets.0")
+        a = f"{d}.attentions.0"
+        if wan:
+            norm(f"{s}.attn.norm", f"{a}.norm")
+            for name, n in (("qkv", "to_qkv"), ("proj", "proj")):
+                out[f"{a}.{n}.weight"] = sd[f"{s}.attn.{name}.weight"][
+                    :, :, None, None]
+                out[f"{a}.{n}.bias"] = sd[f"{s}.attn.{name}.bias"]
+        else:
+            norm(f"{s}.attn.norm", f"{a}.group_norm")
+            for name, n in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"),
+                            ("out", "to_out.0")):
+                out[f"{a}.{n}.weight"] = sd[f"{s}.attn.{name}.weight"]
+                out[f"{a}.{n}.bias"] = sd[f"{s}.attn.{name}.bias"]
+        resnet(f"{s}.res2", f"{d}.resnets.1")
+
+    for part in ("encoder", "decoder"):
+        lv, res = (("down", "downsample") if part == "encoder"
+                   else ("up", "upsample"))
+        conv(f"{part}.conv_in", f"{part}.conv_in")
+        conv(f"{part}.conv_out", f"{part}.conv_out")
+        mid(f"{part}.mid", f"{part}.mid_block")
+        if wan:
+            norm(f"{part}.norm_out", f"{part}.norm_out")
+            n_res = cfg.num_res_blocks + (part == "decoder")
+            idx = 0
+            for i in range(len(cfg.dim_mult)):
+                for j in range(n_res):
+                    resnet(f"{part}.{lv}.{i}.resnets.{j}",
+                           f"{part}.{lv}_blocks.{idx}")
+                    idx += 1
+                if f"{part}.{lv}.{i}.{res}.weight" in sd:
+                    conv(f"{part}.{lv}.{i}.{res}",
+                         f"{part}.{lv}_blocks.{idx}.resample.1")
+                    idx += 1
+        else:
+            norm(f"{part}.norm_out", f"{part}.conv_norm_out")
+            n_res = cfg.layers_per_block + (part == "decoder")
+            for i in range(len(cfg.block_out_channels)):
+                for j in range(n_res):
+                    resnet(f"{part}.{lv}.{i}.resnets.{j}",
+                           f"{part}.{lv}_blocks.{i}.resnets.{j}")
+                if f"{part}.{lv}.{i}.{res}.weight" in sd:
+                    conv(f"{part}.{lv}.{i}.{res}",
+                         f"{part}.{lv}_blocks.{i}.{lv}samplers.0.conv")
+    if wan:
+        conv("encoder.quant_conv", "quant_conv")
+        conv("decoder.post_quant_conv", "post_quant_conv")
+        config = {"_class_name": "AutoencoderKLWan",
+                  "z_dim": cfg.latent_channels, "base_dim": cfg.base_dim,
+                  "dim_mult": list(cfg.dim_mult),
+                  "num_res_blocks": cfg.num_res_blocks,
+                  "latents_mean": list(cfg.latents_mean),
+                  "latents_std": list(cfg.latents_std)}
+    else:
+        config = {"_class_name": "AutoencoderKL",
+                  "latent_channels": cfg.latent_channels,
+                  "block_out_channels": list(cfg.block_out_channels),
+                  "layers_per_block": cfg.layers_per_block,
+                  "norm_num_groups": cfg.norm_num_groups,
+                  "scaling_factor": cfg.scaling_factor,
+                  "shift_factor": cfg.shift_factor}
+    return out, config
+
+
+def write_diffusers_dir(root, model, naming, vae, shards=2):
+    """A diffusers-layout checkpoint directory of bf16 safetensors
+    (`weights.checkpoint.save`): transformer/ in `shards` files, vae/ with
+    its config.json.  Returns the bytes written."""
+    import torch
+    from regione_tpu_torch.weights import checkpoint
+    state = {k: v.to(torch.bfloat16)
+             for k, v in diffusers_transformer_state(model, naming).items()}
+    keys = sorted(state)
+    for i in range(shards):
+        checkpoint.save(
+            root / "transformer"
+            / f"diffusion_pytorch_model-{i + 1:05d}-of-{shards:05d}"
+              ".safetensors", {k: state[k] for k in keys[i::shards]})
+    vstate, config = diffusers_vae_state(vae)
+    checkpoint.save(root / "vae" / "diffusion_pytorch_model.safetensors",
+                    {k: v.to(torch.bfloat16) for k, v in vstate.items()})
+    (root / "vae" / "config.json").write_text(json.dumps(config))
+    return sum(f.stat().st_size for f in root.rglob("*.safetensors"))
+
+
+def _plan(stats):
+    """A sampler's plan statistics (its timing fields left out)."""
+    return {k: v for k, v in dataclasses.asdict(stats).items()
+            if not k.endswith("_s")}
+
+
+def _bf16_values(module):
+    """Round a module's fp32 tensors to bf16 values in place, so a bf16
+    file of it loads back to exactly these values."""
+    import torch
+    with torch.no_grad():
+        for p in module.parameters():
+            p.copy_(p.to(torch.bfloat16))
+
+
+def phase_checkpoints(grid=32, size=512, vae_cfgs=None):
+    """7: checkpoint loading at full width, the depth cut (reduced: 2 double
+    and 4 single blocks; Qwen 2 double; Step1X's connector at its published
+    2 blocks).  For each naming family (FLUX, Step1X, Qwen) a model at its
+    preset's published widths with random bf16 weights on the card and the
+    family's published-size VAE (AutoencoderKL; Wan for Qwen; fp32, its
+    values rounded to bf16) are written as a diffusers-layout directory of
+    bf16 safetensors under build/ckpt/ (`write_diffusers_dir`: the inverse
+    name map lives here, not in the package), then loaded through the CLI's
+    `build_pipeline(--model_path)`: bytes, load seconds and GB/s (the files
+    were just written, so the host reads them from its page cache).  The
+    loaded pipeline's RegionE edit must equal the in-memory model's bit for
+    bit: latents at grid `grid` (Step1X, Qwen), the uint8 image of a
+    size x size `pipe(image, prompt)` (FLUX).  `vae_cfgs`: the
+    (AutoencoderKL, Wan) configs, the published ones by default.  Then the
+    loaded FLUX model,
+    quantized to int8 (with its modulations), round-trips through
+    `checkpoint.save` / `mmdit_from_checkpoint`."""
+    import shutil
+
+    import torch
+    from regione_tpu_torch.cli import main as cli
+    from regione_tpu_torch.models import presets
+    from regione_tpu_torch.models.text_encoders import MockTextEncoder
+    from regione_tpu_torch.models.vae import VAEConfig
+    from regione_tpu_torch.models.vae_wan import WanVAEConfig
+    from regione_tpu_torch.ops._build import BUILD_DIR
+    from regione_tpu_torch.ops.quant import quantize_params
+    from regione_tpu_torch.weights import checkpoint
+    from regione_tpu_torch.weights.from_jax import init_params, init_vae_params
+    dev = torch.device(DEVICE)
+    kl, wan = vae_cfgs or (VAEConfig(), WanVAEConfig())
+    families = {"flux": ("flux-kontext", dict(depth_single=4), kl),
+                "step1x": ("step1x-edit", dict(depth_single=4), kl),
+                "qwen": ("qwen-image-edit", dict(), wan)}
+    out_root = BUILD_DIR.parent / "ckpt"           # inside the checkout
+    image = structured_image(17, size, size)
+    for naming, (backend, depth, vae_cfg) in families.items():
+        preset = f"{backend}:ckpt"
+        cfg = dataclasses.replace(presets.get_config(backend), depth_double=2,
+                                  **depth)
+        presets.PRESETS[preset] = cfg
+        model = init_params(cfg, torch.Generator(dev).manual_seed(7), dev)
+        vae = init_vae_params(vae_cfg, torch.Generator(dev).manual_seed(8),
+                              dev)
+        _bf16_values(vae)
+        root = out_root / naming
+        shutil.rmtree(root, ignore_errors=True)
+        t = time.perf_counter()
+        nbytes = write_diffusers_dir(root, model, naming, vae)
+        write_s = time.perf_counter() - t
+        args = cli.make_parser().parse_args([
+            "--backend", backend, "--preset", preset, "--model_path",
+            str(root), "--device", DEVICE, "--use_regione"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loaded = cli.build_pipeline(args)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"7 {naming} ({backend} widths, {cfg.depth_double} double + "
+            f"{cfg.depth_single} single blocks, {n_params / 1e9:.3f} B "
+            f"params; {type(vae).__name__} {vae_cfg.__class__.__name__}): "
+            f"wrote {nbytes} B of bf16 safetensors in {write_s:.2f} s; "
+            f"build_pipeline(--model_path) loaded them in {load_s:.2f} s, "
+            f"{nbytes / load_s / 1e9:.2f} GB/s")
+        mine = type(loaded)(model, loaded.re)
+        mine.attach_vae(vae).attach_text_encoder(
+            MockTextEncoder(cfg.txt_in_dim, cfg.pooled_dim or None))
+        if naming == "flux":
+            outs = [timed_call(p, image, width=size, height=size, seed=3,
+                               output_type="uint8") for p in (mine, loaded)]
+        else:
+            r, lat0 = _request(cfg, 70, grid)
+            txt_dim = cfg.connector.in_dim if cfg.connector else \
+                cfg.txt_in_dim
+            txt = torch.from_numpy(r.standard_normal(
+                (2, T_TXT, txt_dim), np.float32)).to(dev, cfg.dtype)
+            cond = r.standard_normal((1, grid * grid, cfg.in_channels))
+            outs = []
+            for p in (mine, loaded):
+                ctx = _ctx(txt, None, cond, p.build_rope(grid, grid, T_TXT))
+                outs.append(timed_edit(p, lat0, ctx, grid))
+        (a, sa, *_), (b, sb, _, counts, _) = outs
+        want, got = vae.state_dict(), loaded.vae.state_dict()
+        same_vae = sorted(want) == sorted(got) and all(
+            torch.equal(got[k], want[k]) for k in want)
+        same = bool(np.array_equal(a, b)) and _plan(sa) == _plan(sb) and \
+            same_vae
+        log(f"7 {naming}: the loaded pipeline's RegionE edit "
+            f"{'equals' if same else 'DIFFERS FROM'} the in-memory model's "
+            f"bit for bit ({'uint8 image' if naming == 'flux' else 'latents'}"
+            f" {b.shape}, edited_tokens {sb.edited_tokens}); the loaded "
+            f"{type(loaded.vae).__name__} {'equals' if same_vae else 'DIFFERS FROM'} "
+            f"the written one; launches {counts}")
+        if not same:
+            fail(f"7 {naming}: the loaded checkpoint's edit differs")
+        if naming == "flux":
+            quantize_params(loaded.model, quantize_mods=True)
+            path = out_root / "flux_int8.safetensors"
+            t = time.perf_counter()
+            checkpoint.save(path, loaded.model.state_dict())
+            save_s = time.perf_counter() - t
+            t = time.perf_counter()
+            back = checkpoint.mmdit_from_checkpoint(path, cfg, DEVICE)
+            torch.cuda.synchronize()
+            back_s = time.perf_counter() - t
+            want, got = loaded.model.state_dict(), back.state_dict()
+            same = sorted(want) == sorted(got) and all(
+                got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+                for k in want)
+            size = path.stat().st_size
+            log(f"7 flux int8 (quantize_mods) round trip through "
+                f"checkpoint.save / mmdit_from_checkpoint: {size} B, saved "
+                f"in {save_s:.2f} s, loaded in {back_s:.2f} s "
+                f"({size / back_s / 1e9:.2f} GB/s); state dicts "
+                f"{'equal' if same else 'DIFFERENT'}")
+            if not same:
+                fail("7: the quantized checkpoint did not round-trip")
+            del back, want, got
+            path.unlink()
+        shutil.rmtree(root, ignore_errors=True)
+        del model, vae, loaded, mine, outs
+        release()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the JAX package's full-size weight formats
+# ---------------------------------------------------------------------------
+
+def _fidelity():
+    """The JAX package's FIDELITY.json figures (TPU runs of its own, shown
+    beside the port's for reference only)."""
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / "FIDELITY.json"
+    if not path.exists():
+        return "FIDELITY.json not in this checkout"
+    f = json.loads(path.read_text())
+    return (f"the JAX package's FIDELITY.json (its own model, width "
+            f"{f['width']}, depth {f['depth']}): forward SNR vs fp32 "
+            f"{f['forward_snr_db_vs_fp32']} dB, trajectory SNR vs fp32 over "
+            f"{f['trajectory_steps']} steps "
+            f"{f['trajectory_snr_db_vs_fp32']} dB")
+
+
+def _weights_against_memplan(label, model, **plan_kw):
+    """The model's weight bytes on the card beside `memplan.plan`'s; they
+    must be equal."""
+    import torch
+    from regione_tpu_torch.ops.quant import quantized_bytes
+    from regione_tpu_torch.utils import memplan
+    weights = quantized_bytes(model)
+    plan = memplan.plan(model.cfg, **plan_kw)
+    log(f"{label}: weights on the card {weights} B "
+        f"({weights / 2**30:.2f} GiB), memplan.plan({plan_kw}) "
+        f"{plan.param_bytes} B; allocated now "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if weights != plan.param_bytes:
+        fail(f"{label}: memplan's weight bytes differ from the card's")
+
+
+def phase_flux_w8a8(bf16_out, size=900):
+    """8a: FLUX.1 Kontext at full width and depth in the format of the JAX
+    package's FULLSIZE_FLUX_W8A8 record: built by the CLI's
+    `build_pipeline(--int8 --act_int8)` (random bf16 weights from --seed,
+    6a's, quantized in place to int8 with the modulations; W8A8) with the
+    int8 KV cache and 6a's published-size AutoencoderKL: 6a's request (a
+    900^2 image snapped to 1024^2, seed 3) once dense and once RegionE.
+    K1 > 0, K2q > 0, K2 = 0, K3 once; pixel PSNR of RegionE against dense
+    >= 30 dB; the PSNR against 6a's bf16-weight edit (`bf16_out`) logged
+    with no limit (random weights).  Then `int_mm` at every W8A8 shape of
+    the two calls.  Returns the RegionE call's launch counts."""
+    import torch
+    from regione_tpu_torch.api import RegionEHelper
+    from regione_tpu_torch.cli import main as cli
+    from regione_tpu_torch.core.config import DEFAULT_PARAMS
+    from regione_tpu_torch.models.text_encoders import MockTextEncoder
+    from regione_tpu_torch.models.vae import VAEConfig
+    from regione_tpu_torch.ops._build import BUILD_DIR
+    from regione_tpu_torch.pipelines.flux_kontext import FluxKontextPipeline
+    from regione_tpu_torch.weights.from_jax import init_vae_params
+    dev = torch.device(DEVICE)
+    record_int_mm("8a")
+    image = structured_image(11, size, size)
+    args = cli.make_parser().parse_args([
+        "--backend", "flux-kontext", "--random_weights", "--use_regione",
+        "--int8", "--act_int8", "--device", DEVICE, "--image_path",
+        str(BUILD_DIR.parent / "image_phase" / "input.png"), "--prompt",
+        PROMPT])
+    t = time.perf_counter()
+    model = cli.build_pipeline(args).model
+    torch.cuda.synchronize()
+    log(f"8a flux-kontext W8A8 built by the CLI (--int8 --act_int8: init, "
+        f"then quantize in place) in {time.perf_counter() - t:.1f}s")
+    model.cfg = dataclasses.replace(model.cfg, cache_int8=True)
+    _weights_against_memplan("8a flux-kontext W8A8", model, int8=True,
+                             quantize_mods=True)
+    pipe = FluxKontextPipeline(model, DEFAULT_PARAMS["flux-kontext"])
+    pipe.attach_vae(init_vae_params(
+        VAEConfig(), torch.Generator(dev).manual_seed(1), dev)
+    ).attach_text_encoder(MockTextEncoder(model.cfg.txt_in_dim,
+                                          model.cfg.pooled_dim,
+                                          max_length=T_TXT))
+    helper = RegionEHelper(pipe).disable()
+    dense, _, dense_s, dense_counts, dense_peak = timed_call(
+        pipe, image, seed=3, output_type="uint8")
+    helper.enable()
+    out, stats, regione_s, counts, peak = timed_call(
+        pipe, image, seed=3, output_type="uint8")
+    log(f"8a flux W8A8, int8 cache: dense launches {dense_counts}, peak "
+        f"{dense_peak:.1f} GiB")
+    check_image("8a flux W8A8, int8 cache, RegionE", out, stats, counts,
+                (size, size, 3), "attention_rows2_quant")
+    p = pixel_psnr(dense, out)
+    log(f"8a flux W8A8, int8 cache: dense_s {dense_s:.3f} regione_s "
+        f"{regione_s:.3f} speedup {dense_s / regione_s:.3f}x, pixel PSNR "
+        f"RegionE vs dense {p:.2f} dB (min {PSNR_MIN}), peak device memory "
+        f"{peak:.1f} GiB; against 6a's bf16-weight, bf16-cache edit of the "
+        f"same request: RegionE {pixel_psnr(bf16_out, out):.2f} dB (no "
+        f"limit: random weights); {_fidelity()}")
+    if dense_counts["fused_partition"] or not p >= PSNR_MIN:
+        fail(f"8a: dense launches {dense_counts}, PSNR {p:.2f}")
+    del pipe, model, helper
+    release()
+    check_int_mm("8a", INT_MM_SHAPES["8a"])
+    return counts
+
+
+def phase_qwen_int4(model, req, grid):
+    """8b: Qwen-Image-Edit at full width and depth in the format of the JAX
+    package's FULLSIZE_QWEN60_1024 record: phase 5b's weights quantized in
+    place (int4, the modulations int4 too; each bf16 weight freed as its
+    codes are made) with the int4 KV cache, 5b's request at grid `grid`:
+    one dense and one RegionE latent edit (`check_edit`: K2q > 0, K2 = 0,
+    K3 once, a partial partition, latent PSNR >= 30 dB against dense), the
+    weights' bytes equal to memplan's, and the latent PSNR against 5b's
+    bf16-weight edits of the same request (dense; RegionE with the int4
+    cache), with no limit.  Returns the RegionE edit's launch counts."""
+    import torch
+    from regione_tpu_torch.core.config import DEFAULT_PARAMS
+    from regione_tpu_torch.ops.quant import quantize_params
+    from regione_tpu_torch.pipelines.qwen_image_edit import (
+        QwenImageEditPipeline)
+    lat0, ctx, dense_bf16, int4_bf16 = req
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    quantize_params(model, quantize_mods=True, bits=4, int4_mods=True)
+    torch.cuda.synchronize()
+    log(f"8b qwen-image-edit: quantize_params(bits=4, int4_mods) in place in "
+        f"{time.perf_counter() - t:.1f}s, allocated {before / 2**30:.2f} -> "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    model.cfg = dataclasses.replace(model.cfg, cache_int8=False,
+                                    cache_int4=True)
+    _weights_against_memplan("8b qwen-image-edit int4", model, int8=True,
+                             quantize_mods=True, bits=4, int4_mods=True)
+    pipe = QwenImageEditPipeline(model, DEFAULT_PARAMS["qwen-image-edit"])
+    shape = (1, grid * grid, model.cfg.out_channels)
+    dense, _, dense_s, dense_counts, dense_peak = timed_edit(
+        pipe, lat0, ctx, grid, dense_only=True)
+    out, stats, regione_s, counts, peak = timed_edit(pipe, lat0, ctx, grid)
+    log(f"8b qwen int4 weights, int4 cache: dense launches {dense_counts}, "
+        f"RegionE launches {counts}")
+    p = check_edit("8b qwen int4 weights, int4 cache", out, stats, counts,
+                   dense, shape, "int4")
+    log(f"8b qwen int4 weights, int4 cache, grid {grid}: dense_s "
+        f"{dense_s:.3f} regione_s {regione_s:.3f} speedup "
+        f"{dense_s / regione_s:.3f}x, psnr_latent_vs_dense {p:.2f} dB, peak "
+        f"device memory dense {dense_peak:.1f} / RegionE {peak:.1f} GiB; "
+        f"against 5b's bf16-weight edits of the same request: dense "
+        f"{psnr(dense_bf16, dense):.2f} dB, RegionE (int4 cache both) "
+        f"{psnr(int4_bf16, out):.2f} dB (no limit: random weights); "
+        f"{_fidelity()}")
+    del pipe
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the real prompt encoder
+# ---------------------------------------------------------------------------
+
+ENCODER_BOUND = 1e-4    # fp32 on both sides, TF32 off (matmuls and convs):
+                        # summation order only
+
+
+def phase_encoder(hidden=64, size=256):
+    """9: the port's synthetic Qwen2.5-VL checkpoint (`weights.tiny_vl`,
+    hidden `hidden`) through `QwenVLPromptEncoder` on the card against its
+    CPU run (fp32 both: embeddings within ENCODER_BOUND of their scale,
+    masks equal); then one `pipe(image, prompt)` at size x size through the
+    CLI's `build_pipeline(--model_path)` on a directory holding that
+    text_encoder/ beside a small Qwen topology (txt_in_dim = hidden, 2
+    double blocks of 2 heads of 128) and a small Wan VAE, written as in
+    phase 7: the prompt encoder is the real one on the card, the image of
+    the caller's geometry, K1 > 0, K2 > 0, K3 once."""
+    import shutil
+
+    import torch
+    from regione_tpu_torch.cli import main as cli
+    from regione_tpu_torch.models import presets
+    from regione_tpu_torch.models.mmdit import MMDiTConfig
+    from regione_tpu_torch.models.text_encoders import (
+        QWEN_EDIT_TEMPLATE, QwenVLPromptEncoder)
+    from regione_tpu_torch.models.vae_wan import WanVAEConfig
+    from regione_tpu_torch.ops._build import BUILD_DIR
+    from regione_tpu_torch.weights import tiny_vl
+    from regione_tpu_torch.weights.from_jax import init_params, init_vae_params
+    import transformers
+    dev = torch.device(DEVICE)
+    root = BUILD_DIR.parent / "ckpt" / "vl"
+    shutil.rmtree(root, ignore_errors=True)
+    te = tiny_vl.build_checkpoint(str(root), hidden=hidden)
+    image = structured_image(23, 300, 240)
+    encs = [QwenVLPromptEncoder(te, variant="qwen-image-edit",
+                                template=QWEN_EDIT_TEMPLATE, device=d)
+            for d in (DEVICE, "cpu")]
+    # fp32 on the card: the vision tower's patch conv too (6d leaves cuDNN's
+    # TF32 convs on for the image phases)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    (emb, _, mask), (ref, _, ref_mask) = (e.encode(PROMPT, image=[image])
+                                         for e in encs)
+    torch.backends.cudnn.allow_tf32 = tf32
+    err = float(np.abs(emb - ref).max() / np.abs(ref).max())
+    ok = err <= ENCODER_BOUND and np.array_equal(mask, ref_mask)
+    log(f"9 transformers {transformers.__version__}: QwenVLPromptEncoder "
+        f"(tiny_vl, hidden {hidden}) on {encs[0].model.device} against the "
+        f"CPU: embeddings {emb.shape}, max error {err:.2e} of their scale "
+        f"(bound {ENCODER_BOUND:.0e}), masks "
+        f"{'equal' if np.array_equal(mask, ref_mask) else 'DIFFERENT'}")
+    if not ok:
+        fail("9: the prompt encoder on the card disagrees with its CPU run")
+    del encs
+    cfg = MMDiTConfig(hidden=256, heads=2, head_dim=128, depth_double=2,
+                      depth_single=0, txt_in_dim=hidden, pooled_dim=0,
+                      txt_norm=True, time_embed_dim=64, mlp_ratio=2.0,
+                      in_channels=64, out_channels=64, dtype=torch.bfloat16)
+    presets.PRESETS["qwen-image-edit:vl"] = cfg
+    vae = init_vae_params(WanVAEConfig(base_dim=16, dim_mult=(1, 2, 2, 2),
+                                       num_res_blocks=1),
+                          torch.Generator(dev).manual_seed(4), dev)
+    write_diffusers_dir(root, init_params(
+        cfg, torch.Generator(dev).manual_seed(5), dev), "qwen", vae)
+    pipe = cli.build_pipeline(cli.make_parser().parse_args([
+        "--backend", "qwen-image-edit", "--preset", "qwen-image-edit:vl",
+        "--model_path", str(root), "--device", DEVICE, "--use_regione"]))
+    enc = pipe.text_encoder
+    out, stats, sec, counts, peak = timed_call(
+        pipe, image, width=size, height=size, seed=5, output_type="uint8")
+    log(f"9 qwen-image-edit (small topology) through --model_path with the "
+        f"real encoder ({type(enc).__name__} on {enc.model.device}): "
+        f"{sec:.3f} s end to end")
+    if not isinstance(enc, QwenVLPromptEncoder) or \
+            enc.model.device.type != dev.type:
+        fail(f"9: the pipeline's encoder is {type(enc).__name__}")
+    check_image("9 qwen with the real encoder", out, stats, counts,
+                (size, size, 3), "attention_rows2")
+    del pipe, enc, vae
+    shutil.rmtree(root, ignore_errors=True)
+    release()
+    return counts
 
 
 SRC = "regione_tpu_torch/csrc/attention_tma.cu"
@@ -1696,6 +2456,10 @@ def main():
     paths = phase_small_reference()
     log(f"phase small reference done in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
+    paths.update(phase_small_quantized())
+    log(f"phase 4q (quantized weights, small, card vs CPU) done in "
+        f"{time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
     paths["large_grid"] = phase_large_grid()
     log(f"phase large grid (grid 160) done in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
@@ -1713,7 +2477,7 @@ def main():
     log(f"phase serve (a) (step1x-edit, a group of 3) done in "
         f"{time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    qwen, model, qwen_checks = phase_qwen_slice(qwen_grid)
+    qwen, model, qwen_checks, qwen_request = phase_qwen_slice(qwen_grid)
     paths.update({f"qwen_{k}": v for k, v in qwen.items()})
     checks.update(qwen_checks)
     release()
@@ -1721,17 +2485,34 @@ def main():
         f"{time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     paths["qwen_image"] = phase_qwen_image(model)
-    del model           # 38.1 GiB of Qwen weights leave the card
-    release()
     log(f"phase 6b (qwen-image-edit __call__) done in "
         f"{time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    flux_paths, flux_checks = phase_flux_image()
+    paths["qwen_int4_weights"] = phase_qwen_int4(model, qwen_request,
+                                                 qwen_grid)
+    del model, qwen_request     # the Qwen weights leave the card
+    release()
+    log(f"phase 8b (qwen-image-edit, int4 weights and cache) done in "
+        f"{time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    flux_paths, flux_checks, flux_out = phase_flux_image()
     paths.update(flux_paths)
     checks.update(flux_checks)
     release()
     log(f"phase 6a/serve (b)/6c (flux-kontext image path, EditService, CLI) "
         f"done in {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    paths["flux_w8a8"] = phase_flux_w8a8(flux_out)
+    log(f"phase 8a (flux-kontext, W8A8 and the int8 cache) done in "
+        f"{time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    phase_checkpoints()
+    log(f"phase 7 (checkpoint loading at full width) done in "
+        f"{time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    paths["encoder"] = phase_encoder()
+    log(f"phase 9 (the real prompt encoder on the card) done in "
+        f"{time.perf_counter() - t:.1f}s")
 
     import torch
     record = []

@@ -13,16 +13,24 @@ metadata.json per task.
 
 `--device` places the model (default `cuda`); with no CUDA card the run
 stops instead of moving to the CPU: pass `--device cpu` for the plain
-PyTorch path (tests, small presets).  Weights are random, drawn from
-`--seed` (`init_params`), with a small AutoencoderKL of the production
-spatial factor 8 (so the default ~1024^2 target is a 64 x 64 token grid)
-and `MockTextEncoder`.  Flags of modules that are not
-ported yet stop the run with a message naming their ROADMAP item.
+PyTorch path (tests, small presets).  `--model_path` loads a
+diffusers-layout checkpoint directory (transformer/, vae/ and, when
+present, text_encoder/ with the backend's prompt-encoder recipe;
+`weights.convert.load_converted`).  Without it the weights are random,
+drawn from `--seed` (`init_params`), with a small AutoencoderKL of the
+production spatial factor 8 (so the default ~1024^2 target is a 64 x 64
+token grid) and `MockTextEncoder`.  `--int8` / `--int4` quantize the
+backbone in place after loading (`ops.quant.quantize_params`, with
+`--quantize_mods` and `--int4_mods`), `--act_int8` runs the int8 linears
+as W8A8; `--act_int8` needs `--int8` and excludes `--int4`, as in the JAX
+CLI.  The thinker flags are not ported yet and stop the run with a
+message naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -35,12 +43,6 @@ from regione_tpu_torch.utils.metadata import item_key, resolve_item
 # flag -> the title of the ROADMAP queue-1 item its module waits for (by
 # title, not number: the queue is renumbered as items land)
 UNPORTED = {
-    "model_path": "checkpoint loading",
-    "int8": "quantized weights",
-    "int4": "quantized weights",
-    "act_int8": "quantized weights",
-    "quantize_mods": "quantized weights",
-    "int4_mods": "quantized weights",
     "enable_thinking": "the v1.2 thinker",
     "enable_reflection": "the v1.2 thinker",
 }
@@ -218,15 +220,49 @@ def build_pipeline(args):
                         warmup_step=1, post_step=0,
                         refresh_step=(3,)).validate()
 
-    model = init_params(cfg, torch.Generator(dev).manual_seed(args.seed), dev)
-    # 4 levels: spatial factor 8, token factor 16, as the production VAEs
-    vae_cfg = VAEConfig(block_out_channels=(8, 16, 32, 64), norm_num_groups=8,
-                        layers_per_block=1,
-                        latent_channels=cfg.in_channels // 4)
-    vae = init_vae_params(vae_cfg,
-                          torch.Generator(dev).manual_seed(args.seed + 1), dev)
-    encoder = MockTextEncoder(cfg.txt_in_dim, cfg.pooled_dim or None,
-                              max_length=128)
+    int8, int4 = getattr(args, "int8", False), getattr(args, "int4", False)
+    act_int8 = getattr(args, "act_int8", False)
+    if act_int8 and not int8:
+        # W8A8 needs int8 weights: activation quant alone quantizes nothing
+        raise SystemExit("--act_int8 requires --int8 (W8A8 = int8 weights "
+                         "+ int8 activations)")
+    if int4 and act_int8:
+        # int4 projections run a float matmul; mixing the flags would leave
+        # most of the model outside the W8A8 path asked for
+        raise SystemExit("--int4 and --act_int8 are mutually exclusive "
+                         "(int4 buys single-card fit; W8A8 speed needs "
+                         "int8 weights)")
+
+    if args.model_path:
+        from regione_tpu_torch.weights.convert import load_converted
+        model, vae_cfg, vae, encoder = load_converted(
+            args.model_path, cfg, backend=backend, device=dev)
+    else:
+        model = init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
+                            dev)
+        # 4 levels: spatial factor 8, token factor 16, as the production
+        # VAEs
+        vae_cfg = VAEConfig(block_out_channels=(8, 16, 32, 64),
+                            norm_num_groups=8, layers_per_block=1,
+                            latent_channels=cfg.in_channels // 4)
+        vae = init_vae_params(
+            vae_cfg, torch.Generator(dev).manual_seed(args.seed + 1), dev)
+        encoder = MockTextEncoder(cfg.txt_in_dim, cfg.pooled_dim or None,
+                                  max_length=128)
+    if int8 or int4:
+        from regione_tpu_torch.ops.quant import quantize_params
+        quantize_mods = getattr(args, "quantize_mods", None)
+        if quantize_mods is None:
+            quantize_mods = act_int8 or int4
+        int4_mods = getattr(args, "int4_mods", None)
+        if int4_mods is None:
+            # the single-card format of the 60-block Qwen packs the
+            # modulations to int4 too; --int4_mods false keeps them int8
+            int4_mods = int4
+        quantize_params(model, quantize_mods=quantize_mods,
+                        bits=4 if int4 else 8, int4_mods=int4_mods and int4)
+    if act_int8:
+        model.cfg = dataclasses.replace(model.cfg, act_int8=True)
     # --guidance_scale: FLUX's embedded guidance, true CFG elsewhere; None
     # keeps the backend's default
     kw = {}

@@ -9,11 +9,23 @@ Counterpart of `regione_tpu/models/layers.py`, with its conventions:
 A linear's weight is torch's [out, in] (the JAX package stores [in, out]).
 Attention goes through the port's kernels (`regione_tpu_torch.ops`), which
 take the plain PyTorch path for CPU tensors.
+
+Quantized linears (`ops.quant.quantize_params` puts them in place of
+`nn.Linear`s) keep the JAX package's operation order:
+  * `Int8Linear`, weight-only: dequantize to x's dtype, one matmul, + b;
+  * `Int8Linear` under `act_int8()` (W8A8, `MMDiTConfig.act_int8`): the
+    rows of x quantized to int8 (`quantize_rows`), an exact int8 x int8 ->
+    int32 product (`int_mm`), then in the output dtype x row scale,
+    x channel scale, + b;
+  * `Int4Linear`: two matmuls over the input halves (the packed byte holds
+    column i and i + in/2), summed in x's dtype, + b.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Sequence
 
 import torch
@@ -21,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from regione_tpu_torch.ops.flash_attention import attention, attention_rows2
+from regione_tpu_torch.ops.quant import unpack_int4
 
 
 # ---------------------------------------------------------------------------
@@ -67,6 +80,120 @@ class MLP(nn.Module):
 def mlp_embed_module(d_in: int, d_hidden: int, device, dtype) -> MLP:
     """Time/vector embed MLP: d_in -> d_hidden -> d_hidden."""
     return MLP(d_in, d_hidden, d_hidden, device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# quantized linears
+# ---------------------------------------------------------------------------
+
+# W8A8 switch, set per forward from MMDiTConfig.act_int8 (`MMDiT.forward`);
+# thread-local, so a request prepared on another thread cannot change it
+_ACT_INT8 = threading.local()
+
+
+@contextlib.contextmanager
+def act_int8(enabled: bool = True):
+    prev = act_int8_active()
+    _ACT_INT8.on = enabled
+    try:
+        yield
+    finally:
+        _ACT_INT8.on = prev
+
+
+def act_int8_active() -> bool:
+    return getattr(_ACT_INT8, "on", False)
+
+
+def quantize_rows(x):
+    """Dynamic per-row symmetric int8: x [..., K] -> (int8 [..., K], fp32
+    row scales [..., 1])."""
+    xf = x.float()
+    s_a = xf.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12
+    x8 = torch.clamp(torch.round(xf / s_a), -127, 127).to(torch.int8)
+    return x8, s_a
+
+
+# torch._int_mm on a CUDA tensor takes more than 16 rows and K, N multiples
+# of 8
+_INT_MM_MIN_ROWS = 17
+
+
+def int_mm(x8, w_q):
+    """Exact int8 x int8 -> int32 product x8 [..., K] @ w_q[N, K]^T (cuBLAS
+    on the card, PyTorch's CPU kernel on the CPU; never a float matmul,
+    whose 24-bit mantissa a 3072-deep sum of int8 products exceeds).  On
+    the card fewer than 17 rows are padded with zero rows (rows are
+    independent, so the product's rows are unchanged)."""
+    lead, k = x8.shape[:-1], x8.shape[-1]
+    a = x8.reshape(-1, k)
+    m = a.shape[0]
+    if a.is_cuda:
+        if k % 8 or w_q.shape[0] % 8:
+            raise ValueError(f"int_mm on the card needs K and N multiples "
+                             f"of 8, got K {k}, N {w_q.shape[0]}")
+        if m < _INT_MM_MIN_ROWS:
+            a = torch.cat([a, a.new_zeros(_INT_MM_MIN_ROWS - m, k)])
+    return torch._int_mm(a, w_q.t())[:m].reshape(*lead, w_q.shape[0])
+
+
+def _frozen(t):
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Int8Linear(nn.Module):
+    """An int8 linear ({"w_q": [out, in], "scale": [out, 1], "b"}, JAX's
+    "w_q" / "scale" transposed)."""
+
+    def __init__(self, w_q, scale, b):
+        super().__init__()
+        self.w_q, self.scale, self.bias = _frozen(w_q), _frozen(scale), \
+            _frozen(b)
+
+    def forward(self, x):
+        if act_int8_active():
+            return self.from_rows(*quantize_rows(x), x.dtype)
+        w = (self.w_q.float() * self.scale).to(x.dtype)
+        return F.linear(x, w) + self.bias
+
+    def from_rows(self, x8, s_a, out_dtype):
+        """W8A8 over pre-quantized rows (`quantize_rows`): the int32
+        product cast to `out_dtype`, x row scale, x channel scale, + b."""
+        out = int_mm(x8, self.w_q).to(out_dtype) * s_a.to(out_dtype)
+        return out * self.scale.view(-1).to(out_dtype) + self.bias
+
+
+class Int4Linear(nn.Module):
+    """A nibble-packed int4 linear ({"w_qp": [out, in/2], "scale4":
+    [out, G], "b"}, JAX's transposed)."""
+
+    def __init__(self, w_qp, scale4, b):
+        super().__init__()
+        self.w_qp, self.scale4, self.bias = _frozen(w_qp), _frozen(scale4), \
+            _frozen(b)
+
+    def forward(self, x):
+        d_out, half = self.w_qp.shape
+        g2 = self.scale4.shape[1] // 2
+        lo, hi = unpack_int4(self.w_qp)
+
+        def dq(w4, sc):
+            wg = w4.float().reshape(d_out, g2, half // g2) * sc[..., None]
+            return wg.reshape(d_out, half).to(x.dtype)
+
+        acc = (F.linear(x[..., :half], dq(lo, self.scale4[:, :g2]))
+               + F.linear(x[..., half:], dq(hi, self.scale4[:, g2:])))
+        return acc + self.bias
+
+
+def project_rows(x, linears):
+    """Several linears over one input (`row_projector`): under W8A8 with
+    int8 weights x is quantized once and every projection reads that copy;
+    otherwise each applies to x."""
+    if act_int8_active() and isinstance(linears[0], Int8Linear):
+        x8, s_a = quantize_rows(x)
+        return [lin.from_rows(x8, s_a, x.dtype) for lin in linears]
+    return [lin(x) for lin in linears]
 
 
 # ---------------------------------------------------------------------------

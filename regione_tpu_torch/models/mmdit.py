@@ -23,8 +23,11 @@ in the model dtype, or quantized (`cache_int8`, `cache_int4`: `ops.quant`
 rows plus fp32 row-scale leaves "dk_s" ... of [L, B, H, S]; int4 keeps S/2
 packed rows), which RAGS steps read through kernel K2q.
 The depth runs as a Python loop over `nn.ModuleList`s; linear1 of the single
-blocks is one matmul (the JAX package's deferred-MLP split was an XLA
-rematerialisation fix with the same math).
+blocks is one matmul, quantized or not (the JAX package's deferred-MLP split
+was an XLA rematerialisation fix with the same math, and its `_slice_out`
+halves are output columns of that one product; under W8A8 its input is
+quantized once, as JAX's `row_projector` does).  Any linear may be an
+`nn.Linear` or a quantized one (`ops.quant.quantize_params`).
 """
 
 from __future__ import annotations
@@ -41,12 +44,14 @@ from regione_tpu_torch.ops.quant import quantize_kv_heads, quantize_kv_heads4
 from regione_tpu_torch.models.layers import (
     MLP,
     Scale,
+    act_int8,
     apply_rope,
     concat_rope,
     layernorm,
     make_linear,
     mlp_embed,
     mlp_embed_module,
+    project_rows,
     rmsnorm,
     sdpa,
     sdpa_cached,
@@ -85,6 +90,10 @@ class MMDiTConfig:
                                    # fp32 scales (ops.quant)
     cache_int4: bool = False       # KV cache as S-halves packed int4 +
                                    # scales; exclusive with cache_int8
+    act_int8: bool = False         # W8A8: int8-weight linears quantize
+                                   # their input rows and run an int8
+                                   # product (`layers.act_int8`); no-op
+                                   # without int8 weights (ops.quant)
     dtype: Any = torch.bfloat16
 
     @property
@@ -136,9 +145,10 @@ class Attention(nn.Module):
 
     def qkv(self, x, rope):
         """q, k, v heads [B, H, S, dh] with qk-RMSNorm and RoPE applied."""
-        q = rmsnorm(split_heads(self.q(x), self.heads), self.norm_q.scale)
-        k = rmsnorm(split_heads(self.k(x), self.heads), self.norm_k.scale)
-        v = split_heads(self.v(x), self.heads)
+        q, k, v = project_rows(x, (self.q, self.k, self.v))
+        q = rmsnorm(split_heads(q, self.heads), self.norm_q.scale)
+        k = rmsnorm(split_heads(k, self.heads), self.norm_k.scale)
+        v = split_heads(v, self.heads)
         return apply_rope(q, rope), apply_rope(k, rope), v
 
 
@@ -345,7 +355,15 @@ class MMDiT(nn.Module):
         In rags mode T_img == cap and `sel_img_ids` [cap] (or [B, cap], one
         id set per batch row, with rope_img then [B, cap, dh] tables) maps
         rows into the cache (sentinel s_kv for pad slots).  Returns (v [B, T_img, C_out],
-        cache); write mode fills `cache` in place (zeroed if None)."""
+        cache); write mode fills `cache` in place (zeroed if None).  Under
+        `cfg.act_int8` the int8 linears run W8A8 (`layers.act_int8`)."""
+        with act_int8(self.cfg.act_int8):
+            return self._forward(img, txt, t, rope_img, rope_txt, pooled,
+                                 guidance, mode=mode, cache=cache,
+                                 sel_img_ids=sel_img_ids, txt_bias=txt_bias)
+
+    def _forward(self, img, txt, t, rope_img, rope_txt, pooled, guidance, *,
+                 mode, cache, sel_img_ids, txt_bias):
         cfg, dt = self.cfg, self.cfg.dtype
         if mode == MODE_WRITE and cache is None:
             cache = init_cache(cfg, img.shape[0], img.shape[1], img.device)

@@ -1,10 +1,12 @@
 """Device-memory planning: will the weights plus a group's KV caches fit?
 
-Counterpart of `regione_tpu/utils/memplan.py` at one device (tp 1) with
-the weights in their preset dtype.  The byte counts are exact and allocate
-nothing: the parameters are those of the port's `MMDiT` built on the
-`meta` device, the cache those of `init_cache`'s tensors (the JAX module
-takes both from `jax.eval_shape`); the activations are the JAX module's
+Counterpart of `regione_tpu/utils/memplan.py` at one device (tp 1), with
+the weights in their preset dtype or quantized (`int8`, with the JAX
+module's `quantize_mods`, `bits` and `int4_mods`).  The byte counts are
+exact and allocate nothing: the parameters are those of the port's `MMDiT`
+built on the `meta` device (quantized there by `ops.quant.quantize_params`),
+the cache those of `init_cache`'s tensors (the JAX module takes both from
+`jax.eval_shape`); the activations are the JAX module's
 estimate (the dominant live set of one dense forward at bf16, x2 slack).
 `batch` is the number of images denoised together (`EditService.
 run_batched`'s group, `RegionESampler.sample_batch`): each brings its own
@@ -12,7 +14,8 @@ cache set (`batch_cfg` rows: 2 under batch CFG) and its share of the
 activations.
 
 CLI:  python -m regione_tpu_torch.utils.memplan --preset step1x-edit \
-          --grid 64 --t-txt 512 --batch 3 --cache int8
+          --grid 64 --t-txt 512 --batch 3 --cache int8 [--int8 \
+          [--quantize-mods] [--bits 4 [--int4-mods]]]
 """
 
 from __future__ import annotations
@@ -58,29 +61,34 @@ class MemPlan:
 
 def plan(preset, grid: int = 64, t_txt: int = 512, batch_cfg: int = 2,
          cache: str = "bf16", batch: int = 1, tp: int = 1,
-         int8: bool = False) -> MemPlan:
+         int8: bool = False, quantize_mods: bool = False, bits: int = 8,
+         int4_mods: bool = False) -> MemPlan:
     """Bytes of the weights, of `batch` KV-cache sets and the activation
     estimate for `preset` (a name or an `MMDiTConfig`) at a grid x grid
     token grid (S_kv = 2 * grid^2 image rows) and t_txt text rows, on one
-    card.  `tp` > 1 and int8 weights raise: they wait for the ROADMAP
-    queue-1 items `parallel/sharding.py` and "quantized weights"."""
+    card.  `int8` quantizes the weights as `ops.quant.quantize_params(
+    quantize_mods=, bits=, int4_mods=)` does (bits=4: int4); a packed int4
+    byte counts two parameters in `params_total`.  `tp` > 1 raises: it
+    waits for the ROADMAP queue-1 item `parallel/sharding.py`."""
     from regione_tpu_torch.models.mmdit import MMDiT, init_cache
     from regione_tpu_torch.models.presets import get_config
+    from regione_tpu_torch.ops.quant import quantize_params
     if tp != 1:
         raise NotImplementedError(
             "memplan.plan(tp > 1): tensor parallelism waits for the port of "
             "parallel/sharding (ROADMAP queue 1, `parallel/sharding.py`)")
-    if int8:
-        raise NotImplementedError(
-            "memplan.plan(int8=True): quantized weights wait for the ROADMAP "
-            "queue-1 item \"quantized weights\"")
     if cache not in CACHE_FORMATS:
         raise ValueError(f"cache format {cache!r}, not one of "
                          f"{CACHE_FORMATS}")
     name = preset if isinstance(preset, str) else "custom"
     cfg = get_config(preset) if isinstance(preset, str) else preset
     meta = torch.device("meta")
-    params = list(MMDiT(cfg, meta).parameters())
+    model = MMDiT(cfg, meta)
+    if int8:
+        quantize_params(model, quantize_mods=quantize_mods, bits=bits,
+                        int4_mods=int4_mods)
+    named = list(model.named_parameters())
+    params = [p for _, p in named]
     param_bytes = sum(p.numel() * p.element_size() for p in params)
     s_kv = 2 * grid * grid
     cache_cfg = dataclasses.replace(cfg, cache_int8=cache == "int8",
@@ -94,7 +102,8 @@ def plan(preset, grid: int = 64, t_txt: int = 512, batch_cfg: int = 2,
         batch_cfg=batch_cfg, batch=batch, param_bytes=int(param_bytes),
         cache_bytes=int(cache_bytes), activation_bytes_est=int(act),
         total_bytes=int(param_bytes + cache_bytes + act),
-        params_total=int(sum(p.numel() for p in params)))
+        params_total=int(sum(p.numel() * (2 if n.endswith(".w_qp") else 1)
+                             for n, p in named)))
 
 
 def main(argv=None):
@@ -109,9 +118,16 @@ def main(argv=None):
                     help="images denoised together, each with its own cache")
     ap.add_argument("--cache", default="bf16", choices=CACHE_FORMATS)
     ap.add_argument("--hbm", default="h100", choices=sorted(HBM_BYTES))
+    ap.add_argument("--int8", action="store_true",
+                    help="quantized weights (int8, or int4 with --bits 4)")
+    ap.add_argument("--quantize-mods", action="store_true")
+    ap.add_argument("--bits", type=int, default=8, choices=(4, 8))
+    ap.add_argument("--int4-mods", action="store_true")
     args = ap.parse_args(argv)
     p = plan(args.preset, grid=args.grid, t_txt=args.t_txt,
-             batch_cfg=args.batch_cfg, cache=args.cache, batch=args.batch)
+             batch_cfg=args.batch_cfg, cache=args.cache, batch=args.batch,
+             int8=args.int8, quantize_mods=args.quantize_mods,
+             bits=args.bits, int4_mods=args.int4_mods)
     out = p.as_dict()
     out["fits_" + args.hbm] = p.fits(args.hbm)
     print(json.dumps(out, indent=2))

@@ -13,7 +13,8 @@ the meta device) into the port's `MMDiT`:
     and "txt_norm.scale" (Qwen's text RMSNorm) maps by name.
 Every leaf is consumed exactly once: the converted names must be exactly the
 module's parameters (a strict load), and `convert_params` reports each
-consumed leaf path.
+consumed leaf path.  A tree quantized by the JAX package's
+`quantize_params` loads into the port's quantized linears (`ops.quant`).
 
 `vae_from_jax(params, cfg, device)` does the same for a VAE param tree
 ({"encoder": ..., "decoder": ...}) of either family (`models.vae_module`):
@@ -42,6 +43,7 @@ from regione_tpu_torch.models.layers import AffineNorm, Scale
 from regione_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
 from regione_tpu_torch.models.vae import GroupNorm, vae_module
 from regione_tpu_torch.models.vae_wan import RMSNorm
+from regione_tpu_torch.ops.quant import quantized_shells
 
 # pytree subtrees whose leaves carry a leading layer axis -> ModuleList name
 STACKED = {"double": "double_blocks", "single": "single_blocks",
@@ -78,16 +80,24 @@ def _walk(tree, prefix=()):
             yield path, val
 
 
+# leaves stored [in, out] (or [G, out]) in JAX and [out, in] here: the
+# weight, the int8 / int4 codes and the int4 group scales
+_TRANSPOSED = ("w", "w_q", "w_qp", "scale4")
+
+
 def convert_params(params, device="cuda"):
     """JAX param pytree -> ({torch param name: tensor}, consumed leaf paths
-    in pytree order)."""
+    in pytree order).  A quantized tree's leaves (`ops.quant`) keep their
+    names: "w_q" / "w_qp" / "scale4" are transposed, and so is an int8
+    linear's "scale" ([1, out] -> [out, 1]; a norm's "scale" is 1-D)."""
     state, consumed = {}, []
     for path, leaf in _walk(params):
         t = _to_torch(leaf, device)
-        if path[-1] == "w":
-            t = t.transpose(-1, -2)
         dotted = ".".join(path)
         stack = next((s for s in STACKED if dotted.startswith(s + ".")), None)
+        if path[-1] in _TRANSPOSED or (
+                path[-1] == "scale" and t.dim() == 2 + (stack is not None)):
+            t = t.transpose(-1, -2)
         if stack is None:
             names = {_torch_name(list(path)): t}
         else:
@@ -103,11 +113,14 @@ def convert_params(params, device="cuda"):
 
 
 def mmdit_from_jax(params, cfg: MMDiTConfig, device="cuda") -> MMDiT:
-    """The port's backbone holding a JAX param pytree's values."""
+    """The port's backbone holding a JAX param pytree's values, quantized
+    linears (`ops.quant.quantize_params`' trees) included: each tensor is
+    copied into its parameter's dtype (the model dtype; codes int8, scales
+    fp32)."""
     model = MMDiT(cfg, device)
     state, _ = convert_params(params, device)
-    model.load_state_dict(
-        {k: v.to(cfg.dtype) for k, v in state.items()}, strict=True)
+    quantized_shells(model, state)
+    model.load_state_dict(state, strict=True)
     return model.eval()
 
 

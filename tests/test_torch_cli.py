@@ -3,8 +3,11 @@
 Demo and evaluation mode at the tiny presets with `--device cpu` and random
 weights, beside the JAX package's CLI on the same inputs: the same output
 files, image geometry and JSON schema (time_consuming.json, metadata.json).
-Flags whose modules are not ported stop the run with their ROADMAP item;
-the reference command-line forms (jsonl / dataset-root `--image_path`, the
+`--model_path` (a synthetic diffusers-layout checkpoint) and the weight
+formats (`--int8`, `--int4`, `--act_int8`, `--quantize_mods`,
+`--int4_mods`) give the JAX CLI's image, and its two refusals; the
+thinker flags, not ported, stop the run with their ROADMAP item; the
+reference command-line forms (jsonl / dataset-root `--image_path`, the
 28-step pin, warmup on the first item) behave as in tests/test_cli.py.
 """
 
@@ -127,11 +130,7 @@ def test_build_pipeline_geometry_and_flags():
     assert parser.parse_args([]).device == "cuda"
 
 
-@pytest.mark.parametrize("flag", [["--int8"], ["--int4"], ["--act_int8"],
-                                  ["--quantize_mods", "true"],
-                                  ["--int4_mods", "false"],
-                                  ["--model_path", "ckpt"],
-                                  ["--enable_thinking"],
+@pytest.mark.parametrize("flag", [["--enable_thinking"],
                                   ["--enable_reflection"]])
 def test_unported_flags_exit_with_their_roadmap_item(flag, tmp_path):
     with pytest.raises(SystemExit, match="not ported.*ROADMAP queue 1"):
@@ -201,3 +200,110 @@ def test_print_plan(tmp_path, capsys):
                       "--image_path", str(_png(tmp_path / "in.png")),
                       "--prompt", "x", "--output_dir", str(tmp_path / "o")])
     assert "partition" in capsys.readouterr().out.lower()
+
+
+def _checkpoint(root, preset="tiny"):
+    """A diffusers-layout directory (transformer/, vae/) of fp32 tensors
+    whose values are bf16 numbers, so the JAX loader's bf16 cast keeps them
+    and both CLIs run the same weights."""
+    import jax
+    from regione_tpu.models import vae as JV
+    from regione_tpu.models.mmdit import init_mmdit
+    from regione_tpu.models.presets import get_config
+    from tests.test_convert import synth_state_from_params, synth_vae_state
+    from tests.test_torch_convert import _write_shards
+
+    def bf16_values(state):
+        return {k: torch.from_numpy(np.array(v, np.float32)).bfloat16()
+                .float().numpy() for k, v in state.items()}
+
+    cfg = get_config(preset)
+    _write_shards(root / "transformer", bf16_values(synth_state_from_params(
+        init_mmdit(jax.random.PRNGKey(3), cfg), cfg)))
+    vcfg = JV.VAEConfig(block_out_channels=(8, 16, 32, 64), norm_num_groups=8,
+                        layers_per_block=1, latent_channels=2)
+    _write_shards(root / "vae", synth_vae_state(
+        JV.init_vae(jax.random.PRNGKey(4), vcfg)), n_shards=1)
+    (root / "vae" / "config.json").write_text(json.dumps(
+        {"latent_channels": 2, "block_out_channels": [8, 16, 32, 64],
+         "layers_per_block": 1, "norm_num_groups": 8}))
+    return root
+
+
+def _psnr(a, b):
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+@pytest.mark.parametrize("flags,psnr_min", [
+    ([], 50.0),
+    (["--int8"], 50.0),
+    (["--int4"], 50.0),
+    (["--int8", "--act_int8"], 40.0),
+    (["--int8", "--quantize_mods", "true"], 50.0),
+    (["--int4", "--int4_mods", "false"], 50.0),
+])
+def test_ported_flags_match_the_jax_cli(flags, psnr_min, tmp_path,
+                                        monkeypatch):
+    """`--model_path` on a synthetic checkpoint, with each weight format:
+    the port's demo image against the JAX CLI's, the JAX noise handed to the
+    port.  Pixel PSNR >= 50 dB (fp32
+    both sides; the uint8 rounding of a summation-order difference), >= 40
+    dB under W8A8 (an activation code a summation-order difference moves
+    across a rounding boundary).  int4 takes the tiny preset's narrow
+    linears (_INT4_MIN_IN 0 in both packages)."""
+    import jax
+    import regione_tpu.ops.quant as jquant
+    import regione_tpu_torch.ops.quant as tquant
+    from regione_tpu_torch.pipelines.base import EditPipelineBase
+    monkeypatch.setattr(jquant, "_INT4_MIN_IN", 0)
+    monkeypatch.setattr(tquant, "_INT4_MIN_IN", 0)
+    # the JAX package's noise (jax.random) through the port's seam
+    monkeypatch.setattr(
+        EditPipelineBase, "initial_latents",
+        lambda self, seed, shape: torch.from_numpy(np.array(
+            jax.random.normal(jax.random.PRNGKey(seed), shape))))
+    ckpt = _checkpoint(tmp_path / "ckpt")
+    # the input at the target size: the mock encoder hashes the resized
+    # image, and the two host resizes may round a pixel apart
+    src = _png(tmp_path / "in.png", shape=(64, 64, 3))
+    args = ["--use_regione", "--size_level", "64", "--preset", "tiny",
+            "--model_path", str(ckpt), "--image_path", str(src),
+            "--prompt", "test edit"] + flags
+    jcli.main(args + ["--output_dir", str(tmp_path / "jax")])
+    tcli.main(args + ["--output_dir", str(tmp_path / "port"),
+                      "--device", "cpu"])
+    got = np.asarray(Image.open(tmp_path / "port" / "demo_0.png"))
+    want = np.asarray(Image.open(tmp_path / "jax" / "demo_0.png"))
+    assert got.shape == want.shape == (64, 64, 3)
+    assert _psnr(want, got) >= psnr_min
+
+
+def test_quantized_build_replaces_the_linears(tmp_path):
+    from regione_tpu_torch.models.layers import Int4Linear, Int8Linear
+    args = tcli.make_parser().parse_args(
+        ["--preset", "tiny", "--device", "cpu", "--model_path",
+         str(_checkpoint(tmp_path / "ckpt")), "--int8", "--act_int8"])
+    pipe = tcli.build_pipeline(args)
+    kinds = {type(m) for m in pipe.model.modules()}
+    assert Int8Linear in kinds and Int4Linear not in kinds
+    assert pipe.model.cfg.act_int8 and pipe.cfg.act_int8
+    # W8A8 takes the modulations (quantize_mods defaults to true), never
+    # final_mod
+    assert isinstance(pipe.model.double_blocks[0].img_mod, Int8Linear)
+    assert type(pipe.model.final_mod) is torch.nn.Linear
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--act_int8"], "requires --int8"),
+    (["--int8", "--int4", "--act_int8"], "mutually exclusive"),
+])
+def test_invalid_weight_flags_exit_like_the_jax_cli(flags, match, tmp_path):
+    common = ["--preset", "tiny", "--random_weights", "--image_path",
+              str(_png(tmp_path / "in.png")), "--prompt", "x"] + flags
+    with pytest.raises(SystemExit, match=match):
+        jcli.main(common + ["--output_dir", str(tmp_path / "jax")])
+    with pytest.raises(SystemExit, match=match):
+        tcli.main(common + ["--output_dir", str(tmp_path / "port"),
+                            "--device", "cpu"])
+    assert not (tmp_path / "port").exists()

@@ -93,8 +93,6 @@ def test_plan_of_a_group_holds_one_cache_set_per_image():
 def test_plan_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="sharding"):
         memplan.plan("tiny", tp=2)
-    with pytest.raises(NotImplementedError, match="quantized weights"):
-        memplan.plan("tiny", int8=True)
     with pytest.raises(ValueError, match="cache format"):
         memplan.plan("tiny", cache="fp8")
 
