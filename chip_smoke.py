@@ -95,7 +95,25 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
   9. the real prompt encoder: the port's synthetic Qwen2.5-VL checkpoint
      through `QwenVLPromptEncoder` on the card against the CPU, then a
      `pipe(image, prompt)` of a small Qwen topology through `--model_path`
-     with that text_encoder/.
+     with that text_encoder/;
+  10. the v1.2 thinker and the evaluation stack:
+     10a. (after serve (a), on phase 5's weights) Step1X-Edit v1.2 through
+         `edit_with_reflection` at 512 x 512 with the local Qwen2.5-VL
+         thinker (the synthetic checkpoint) on the card, at most 2 tries:
+         per try K1, K2 and K3 once; with `EchoThinker` and reflection off
+         the image of the plain call bit for bit; the VLM's seconds beside
+         the edits';
+     10d. (after 8b) `pixelprobe.pixel_psnr_vs_dense` on phase 5's dense
+         and RegionE latents (AutoencoderKL, 512 x 512) and 5b's (Wan,
+         1024 x 1024): pixel PSNR >= 30 dB beside the latent PSNR, decode
+         ms, peak memory, only the decoder on the card;
+     10b. (after 6c, on 6a's pipeline) the CLI's `run_evaluation` at
+         --size_level 512, vanilla and RegionE, then `run_metrics` (LPIPS
+         on the card over seeded weights), `merge`, and `run_viescore`
+         with the dry-run and the local Qwen2.5-VL judge: CSV PSNR against
+         the PNGs', `Latency:` against the timing lists;
+     10c. LPIPS on the card against the CPU at 512^2 and 1024^2 (TF32
+         convs off), ms a pair.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is the kernels' JSON record, the last line the
 device record.  Imports no JAX and nothing of the JAX package: the port
@@ -910,7 +928,8 @@ def _request(cfg, seed, grid):
 def phase_slice(grid):
     """Step1X-Edit at full width and depth on the card: the dense edit and
     the RegionE edit of two requests.  Returns the kernels' launch counts
-    in the timed RegionE edit (the second request)."""
+    in the timed RegionE edit (the second request), the pipeline with its
+    context, and that request's dense and RegionE latents (for 10d)."""
     import torch
     from regione_tpu_torch.core.config import RegionEParams
     from regione_tpu_torch.models.presets import get_config
@@ -954,7 +973,7 @@ def phase_slice(grid):
         check_edit(label, out, stats, counts, dense,
                    (1, grid * grid, cfg.out_channels), "bf16")
         runs.append(counts)
-    return runs[-1], (pipe, ctx, lat0)
+    return runs[-1], (pipe, ctx, lat0), (dense, out)
 
 
 def phase_large_grid(grid=160):
@@ -1022,7 +1041,8 @@ def phase_qwen_slice(grid, preset="qwen-image-edit"):
     path's shape.  Returns {cache format: launch counts}, the model (int8
     cache), the kernels' records at this path's shape and the request with
     its bf16-weight edits (lat0, ctx, dense latents, the int4-cache RegionE
-    latents) for phase 8b."""
+    latents) for phase 8b, and the dense and int8-cache RegionE latents
+    (for 10d)."""
     import torch
     from regione_tpu_torch.core.config import DEFAULT_PARAMS
     from regione_tpu_torch.models.presets import get_config
@@ -1097,7 +1117,7 @@ def phase_qwen_slice(grid, preset="qwen-image-edit"):
                                 ("qwen_rows2_bf16", 16))}
     if not all(r["ok"] for r in checks.values()):
         fail("a kernel disagrees with its plain version at the Qwen shapes")
-    return counts, model, checks, request
+    return counts, model, checks, request, (dense, outs["int8"])
 
 
 def _kernel_group(name: str) -> str:
@@ -1565,16 +1585,19 @@ def phase_qwen_image(model, size=512, vae_cfg=None):
     return counts
 
 
-def phase_flux_image(preset="flux-kontext", vae_cfg=None, size=900):
-    """6a, serve (b) and 6c: FLUX.1 Kontext at full width through the
+def phase_flux_image(preset="flux-kontext", vae_cfg=None, size=900,
+                     te=None, eval_size=512):
+    """6a, serve (b), 6c and 10b: FLUX.1 Kontext at full width through the
     image-level entry points.  The CLI's `build_pipeline` builds the
     backbone (random bf16 weights from --seed); 6a edits with it through a
     `FluxKontextPipeline` holding the published-size AutoencoderKL, and
     serve (b) serves three requests on that pipeline
     (`phase_serve_images`); 6c runs the CLI's `run_demo` on the CLI's own
-    pipeline.  Returns the launch counts of the timed RegionE call, of
-    serve (b)'s `run_batched` and of the CLI edit, the kernel checks at
-    this path's shapes, and 6a's timed RegionE image (uint8, for 8a)."""
+    pipeline; 10b (`phase_eval_chain`, with the VLM checkpoint `te`) runs
+    the evaluation stack on 6a's pipeline.  Returns the launch counts of
+    the timed RegionE call, of serve (b)'s `run_batched`, of the CLI edit
+    and of 10b's RegionE run, the kernel checks at this path's shapes, and
+    6a's timed RegionE image (uint8, for 8a)."""
     import torch
     from PIL import Image
 
@@ -1688,6 +1711,12 @@ def phase_flux_image(preset="flux-kontext", vae_cfg=None, size=900):
             cli_counts["attention"] == 0 or cli_counts["attention_rows2"] == 0:
         fail(f"6c: CLI output {written.shape} or launches {cli_counts}")
     paths.update(flux_image=counts, cli=cli_counts)
+
+    # 10b: the evaluation stack on 6a's pipeline
+    t = time.perf_counter()
+    paths["eval_chain"] = phase_eval_chain(pipe, helper, te, eval_size)
+    log(f"phase 10b (eval chain: CLI generation, metrics, merge, VIEScore) "
+        f"done in {time.perf_counter() - t:.1f}s")
     return paths, checks, out
 
 
@@ -2328,9 +2357,10 @@ ENCODER_BOUND = 1e-4    # fp32 on both sides, TF32 off (matmuls and convs):
                         # summation order only
 
 
-def phase_encoder(hidden=64, size=256):
+def phase_encoder(hidden=64, size=256, te=None):
     """9: the port's synthetic Qwen2.5-VL checkpoint (`weights.tiny_vl`,
-    hidden `hidden`) through `QwenVLPromptEncoder` on the card against its
+    hidden `hidden`; `te`: one built already, as `vl_checkpoint` writes
+    it) through `QwenVLPromptEncoder` on the card against its
     CPU run (fp32 both: embeddings within ENCODER_BOUND of their scale,
     masks equal); then one `pipe(image, prompt)` at size x size through the
     CLI's `build_pipeline(--model_path)` on a directory holding that
@@ -2353,8 +2383,9 @@ def phase_encoder(hidden=64, size=256):
     import transformers
     dev = torch.device(DEVICE)
     root = BUILD_DIR.parent / "ckpt" / "vl"
-    shutil.rmtree(root, ignore_errors=True)
-    te = tiny_vl.build_checkpoint(str(root), hidden=hidden)
+    if te is None:
+        shutil.rmtree(root, ignore_errors=True)
+        te = tiny_vl.build_checkpoint(str(root), hidden=hidden)
     image = structured_image(23, 300, 240)
     encs = [QwenVLPromptEncoder(te, variant="qwen-image-edit",
                                 template=QWEN_EDIT_TEMPLATE, device=d)
@@ -2404,6 +2435,342 @@ def phase_encoder(hidden=64, size=256):
     shutil.rmtree(root, ignore_errors=True)
     release()
     return counts
+
+# ---------------------------------------------------------------------------
+# phase 10: the v1.2 thinker and the evaluation stack
+# ---------------------------------------------------------------------------
+
+def vl_checkpoint(hidden=64):
+    """The synthetic Qwen2.5-VL checkpoint (`weights.tiny_vl`) under
+    build/ckpt/vl/text_encoder, written anew: the VLM of 10a and 10b, the
+    prompt encoder of phase 9."""
+    import shutil
+
+    from regione_tpu_torch.ops._build import BUILD_DIR
+    from regione_tpu_torch.weights import tiny_vl
+    root = BUILD_DIR.parent / "ckpt" / "vl"
+    shutil.rmtree(root, ignore_errors=True)
+    t = time.perf_counter()
+    te = tiny_vl.build_checkpoint(str(root), hidden=hidden)
+    log(f"tiny_vl checkpoint (hidden {hidden}) written in "
+        f"{time.perf_counter() - t:.1f}s")
+    return te
+
+
+def phase_thinker(pipe, te, size=512, vae_cfg=None):
+    """10a: the Step1X-Edit v1.2 outer loop at full width, on phase 5's
+    weights (`step1x-edit-v1p2` is the v1.1 topology with its own gamma
+    table): a `Step1XEditV1P2Pipeline` over the same model with the
+    published-size AutoencoderKL and 6a's MockTextEncoder, through
+    `edit_with_reflection` at size x size with the local Qwen2.5-VL thinker
+    (`te`) on the card, at most 2 tries.  Checks the uint8 output, 1-2
+    tries, a score in `best_info`, per try K1 > 0, K3 once and K2 > 0
+    (`check_image`); then with `EchoThinker` and reflection off, the output
+    equal to `pipe(image, prompt, seed)` bit for bit.  Logs the seconds of
+    the VLM's think and reflect calls beside the edits'.  Returns the
+    launch counts of the last try."""
+    import torch
+    from regione_tpu_torch.core.config import DEFAULT_PARAMS
+    from regione_tpu_torch.models.text_encoders import MockTextEncoder
+    from regione_tpu_torch.models.vae import VAEConfig
+    from regione_tpu_torch.pipelines.step1x_edit import Step1XEditV1P2Pipeline
+    from regione_tpu_torch.pipelines.thinker import (
+        EchoThinker, edit_with_reflection, local_vlm_thinker)
+    from regione_tpu_torch.weights.from_jax import init_vae_params
+    dev = torch.device(DEVICE)
+    cfg = pipe.cfg
+    v12 = Step1XEditV1P2Pipeline(pipe.model,
+                                 DEFAULT_PARAMS["step1x-edit-v1p2"])
+    vae = init_vae_params(vae_cfg or VAEConfig(),
+                          torch.Generator(dev).manual_seed(1), dev)
+    v12.attach_vae(vae).attach_text_encoder(
+        MockTextEncoder(cfg.txt_in_dim, cfg.pooled_dim, max_length=T_TXT))
+    image = structured_image(31, 600, 560)
+    shape = (size, size, 3)
+
+    tries = []
+
+    def counted(img, prompt, **kw):
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, stats = v12(img, prompt, **kw)
+        torch.cuda.synchronize()
+        tries.append((time.perf_counter() - t, read_counts(), stats, out))
+        return out, stats
+
+    t = time.perf_counter()
+    thinker = local_vlm_thinker(te, device=DEVICE, max_new_tokens=8)
+    log(f"10a local_vlm_thinker(tiny_vl, device={DEVICE!r}) loaded in "
+        f"{time.perf_counter() - t:.2f}s")
+    vlm_calls = []
+    vlm = thinker.vlm
+
+    def timed_vlm(images, text):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        reply = vlm(images, text)
+        torch.cuda.synchronize()
+        vlm_calls.append(("think" if len(images) == 1 else "reflect",
+                          time.perf_counter() - t, reply))
+        return reply
+
+    thinker.vlm = timed_vlm
+    t = time.perf_counter()
+    best, info = edit_with_reflection(counted, image, PROMPT, thinker=thinker,
+                                      max_try_cnt=2, seed=13, width=size,
+                                      height=size)
+    total = time.perf_counter() - t
+    for name, sec, reply in vlm_calls:
+        log(f"10a VLM {name}: {sec:.3f} s, reply {reply[:40]!r}")
+    for i, (sec, counts, stats, out) in enumerate(tries):
+        log(f"10a try {i} (prompt {info['think_info'][i]['prompt'][:40]!r}, "
+            f"success {info['think_info'][i]['success']}): edit {sec:.3f} s")
+        check_image(f"10a try {i}", out, stats, counts, shape,
+                    "attention_rows2")
+    log(f"10a edit_with_reflection: {total:.3f} s end to end, "
+        f"{len(tries)} tries, VLM {sum(c[1] for c in vlm_calls):.3f} s in "
+        f"{len(vlm_calls)} calls, edits {sum(x[0] for x in tries):.3f} s; "
+        f"best_info {info['best_info']}; output {best.dtype} {best.shape}")
+    problems = []
+    if best.shape != shape or best.dtype != np.uint8:
+        problems.append(f"output {best.dtype} {best.shape}")
+    if not 1 <= len(tries) == len(info["images"]) <= 2:
+        problems.append(f"{len(tries)} tries")
+    if "score" not in info["best_info"]:
+        problems.append(f"best_info {info['best_info']}")
+
+    echo, einfo = edit_with_reflection(v12, image, PROMPT,
+                                       thinker=EchoThinker(),
+                                       enable_reflection=False, seed=17,
+                                       width=size, height=size)
+    plain, _ = v12(image, PROMPT, seed=17, width=size, height=size,
+                   output_type="uint8")
+    same = np.array_equal(echo, plain)
+    log(f"10a EchoThinker, reflection off: {len(einfo['images'])} try, "
+        f"output {'equal' if same else 'DIFFERENT'} to pipe(image, prompt, "
+        f"seed=17) (max {int(np.abs(echo.astype(int) - plain).max())} "
+        f"levels apart)")
+    if not same or len(einfo["images"]) != 1:
+        problems.append("EchoThinker's edit differs from the plain call")
+    if problems:
+        fail("10a: " + "; ".join(problems))
+    del v12, vae, thinker, vlm
+    release()
+    return tries[-1][1]
+
+
+def seeded_lpips_npz(path, seed=0):
+    """LPIPS(alex) weights of the published shapes, seeded random (the
+    AlexNet and lin weights are not in the repository), written as the
+    `.npz` both packages read."""
+    from regione_tpu_torch.eval import lpips_torch
+    rng = np.random.default_rng(seed)
+    params, cin = {}, 3
+    for i, (oc, k, _, _) in enumerate(lpips_torch._ALEX_STAGES):
+        params[f"conv{i}_w"] = (rng.standard_normal((oc, cin, k, k)) /
+                                np.sqrt(cin * k * k)).astype(np.float32)
+        params[f"conv{i}_b"] = (0.1 * rng.standard_normal(oc)).astype(
+            np.float32)
+        params[f"lin{i}"] = np.abs(rng.standard_normal(oc)).astype(
+            np.float32)
+        cin = oc
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **params)
+    return path
+
+
+def phase_eval_chain(pipe, helper, te, size=512):
+    """10b, on 6a's FLUX.1 Kontext pipeline (mirrors
+    tests/test_eval_chain.py and the reference's script/Evaluation.sh): one
+    synthetic task of 2 items (metadata.jsonl + img/), the CLI's
+    `run_evaluation` with --size_level `size` twice, vanilla (under
+    `RegionEHelper.disable()`) and RegionE; `run_metrics` with LPIPS on the
+    card over seeded weights; `merge.merge_direction` of both roots;
+    `run_viescore.main` with the dry-run judge and with the local
+    Qwen2.5-VL judge (`te`, on the card, give-up parsing).  Checks each CSV
+    row's PSNR against the PSNR of the same PNG pair, `Latency:` against
+    the mean of each time_consuming.json list, LPIPS finite, the VIEScore
+    statistics in [0, 10].  Returns the RegionE run's launch counts."""
+    import csv
+    import shutil
+
+    from PIL import Image
+
+    from regione_tpu_torch.cli import main as cli
+    from regione_tpu_torch.eval import merge, metrics, run_metrics
+    from regione_tpu_torch.eval import run_viescore
+    from regione_tpu_torch.ops._build import BUILD_DIR
+    root = BUILD_DIR.parent / "eval_chain"
+    shutil.rmtree(root, ignore_errors=True)
+    task = root / "bench" / "TE"
+    (task / "img").mkdir(parents=True)
+    with open(task / "metadata.jsonl", "w") as fh:
+        for k in range(2):
+            Image.fromarray(structured_image(41 + k, 700, 600)).save(
+                task / "img" / f"k{k}.png")
+            fh.write(json.dumps({"key": f"k{k}", "image": f"k{k}.png",
+                                 "prompt": PROMPT}) + "\n")
+    van, reg = root / "vanilla", root / "regione"
+    args = cli.make_parser().parse_args([
+        "--backend", "flux-kontext", "--evaluation", "--eval_dir",
+        str(root / "bench"), "--size_level", str(size), "--seed", "3",
+        "--device", DEVICE])
+    counts = {}
+    for name, out_dir in (("vanilla", van), ("regione", reg)):
+        (helper.disable if name == "vanilla" else helper.enable)()
+        args.output_dir = str(out_dir)
+        reset_counts()
+        t = time.perf_counter()
+        cli.run_evaluation(pipe, args)
+        counts[name] = read_counts()
+        log(f"10b run_evaluation ({name}, --size_level {size}): "
+            f"{time.perf_counter() - t:.3f} s, launches {counts[name]}")
+    helper.enable()
+    if counts["vanilla"]["fused_partition"] or \
+            counts["vanilla"]["attention_rows2"] or \
+            counts["regione"]["fused_partition"] != 2 or \
+            counts["regione"]["attention_rows2"] == 0:
+        fail(f"10b: launch counts {counts}")
+
+    npz = seeded_lpips_npz(BUILD_DIR.parent / "lpips_alex.npz")
+    t = time.perf_counter()
+    res = run_metrics.main(["--folder1", str(van), "--folder2", str(reg),
+                            "--lpips_weights", str(npz), "--device", DEVICE])
+    log(f"10b run_metrics (LPIPS on {DEVICE}): "
+        f"{time.perf_counter() - t:.3f} s")
+    problems = []
+    table = {r["Filename"]: r for r in csv.DictReader(
+        open(reg / "TE" / "metric.csv"))}
+    for row in res["TE"]:
+        a, b = (np.asarray(Image.open(d / "TE" / "generation" / row["file"]))
+                for d in (van, reg))
+        own = metrics.psnr(a, b)
+        written = table[row["file"]]
+        log(f"10b {row['file']}: {a.shape}, PSNR {written['PSNR']} (own "
+            f"{own:.4f}), SSIM {written['SSIM']}, LPIPS {written['LPIPS']}")
+        if written["PSNR"] != f"{own:.4f}" or not np.isfinite(row["lpips"]) \
+                or a.shape != (size, size, 3):
+            problems.append(f"{row['file']}: {written}, own PSNR {own}")
+    for name, d in (("vanilla", van), ("regione", reg)):
+        text = merge.merge_direction(str(d), is_pretrain=name == "vanilla")
+        lat = json.load(open(d / "TE" / "time_consuming.json"))[
+            "time_consuming_list"]
+        log(f"10b merged_metric.txt ({name}): "
+            + text.strip().replace("\n", ", "))
+        if f"Latency: {np.mean(lat):.4f}" not in text:
+            problems.append(f"{name} latency {text!r} vs {lat}")
+    for judge, extra in (("dryrun", []),
+                         ("qwen25vl", ["--vlm_path", te, "--workers", "1",
+                                       "--max_new_tokens", "8"])):
+        t = time.perf_counter()
+        stats = run_viescore.main(["--data_dir", str(root / "bench"),
+                                   "--gen_root", str(reg), "--backbone",
+                                   judge, "--device", DEVICE] + extra)
+        rows = list(csv.DictReader(open(reg / "TE" /
+                                        f"{judge}_vie_score.csv")))
+        o = stats["overall"]
+        log(f"10b run_viescore --backbone {judge}: "
+            f"{time.perf_counter() - t:.3f} s, n {stats['n']}, sc "
+            f"{o.get('sc')}, pq {o.get('pq')}, o {o.get('o')}, guessed "
+            f"{sum(int(r['guessed']) for r in rows)} of {len(rows)}")
+        if stats["n"] != 2 or not all(0.0 <= o[k] <= 10.0
+                                      for k in ("sc", "pq", "o")):
+            problems.append(f"{judge} statistics {stats}")
+    if problems:
+        fail("10b: " + "; ".join(problems))
+    return counts["regione"]
+
+
+LPIPS_BOUND = 1e-4      # of the distance: fp32 both sides, TF32 off
+
+
+def phase_lpips(sizes=(512, 1024)):
+    """10c: LPIPS(alex) over 10b's seeded weights on the card against the
+    CPU, with cuDNN's TF32 convs off (6d leaves them on), on a structured
+    image and a perturbed copy at each size: within LPIPS_BOUND of the
+    distance; ms per pair on the card (CUDA events) with TF32 off and
+    on."""
+    import torch
+    from regione_tpu_torch.eval import lpips_torch
+    from regione_tpu_torch.ops._build import BUILD_DIR
+    npz = seeded_lpips_npz(BUILD_DIR.parent / "lpips_alex.npz")
+    params = {d: lpips_torch.load_lpips_npz(str(npz), device=d)
+              for d in (DEVICE, "cpu")}
+    tf32 = torch.backends.cudnn.allow_tf32
+    ok = True
+    for size in sizes:
+        a = structured_image(51, size, size)
+        r = np.random.default_rng(size)
+        b = np.clip(a.astype(int) + r.integers(-12, 13, a.shape), 0, 255
+                    ).astype(np.uint8)
+        x = {d: (_image_tensor(a, d), _image_tensor(b, d))
+             for d in (DEVICE, "cpu")}
+        t = time.perf_counter()
+        want = float(lpips_torch.lpips_forward(params["cpu"], *x["cpu"])[0])
+        cpu_s = time.perf_counter() - t
+        ms = {}
+        for on in (False, True):
+            torch.backends.cudnn.allow_tf32 = on
+            got = float(lpips_torch.lpips_forward(params[DEVICE],
+                                                  *x[DEVICE])[0])
+            ms[on] = cuda_ms(lambda: lpips_torch.lpips_forward(
+                params[DEVICE], *x[DEVICE]), iters=5)
+            if not on:
+                err = abs(got - want) / abs(want)
+        good = err <= LPIPS_BOUND and np.isfinite(got)
+        ok &= good
+        log(f"10c LPIPS {size}x{size}: card {got:.6f} vs CPU {want:.6f}, "
+            f"relative error {err:.2e} with TF32 convs off (bound "
+            f"{LPIPS_BOUND:.0e}) {'ok' if good else 'FAIL'}; card "
+            f"{ms[False]:.3f} ms a pair (TF32 off), {ms[True]:.3f} ms (on); "
+            f"CPU {cpu_s * 1e3:.1f} ms")
+    torch.backends.cudnn.allow_tf32 = tf32
+    if not ok:
+        fail("10c: LPIPS on the card disagrees with the CPU")
+
+
+def phase_pixelprobe(probes):
+    """10d: `pixelprobe.pixel_psnr_vs_dense` on dense and RegionE latents
+    of earlier phases, `probes` = [(label, dense, regione, grid, family)]:
+    pixel PSNR (>= PSNR_MIN) beside the latent PSNR, the decode's ms (CUDA
+    events) and the probe's peak device memory; only the decoder on the
+    card."""
+    import torch
+    from regione_tpu_torch.eval import pixelprobe
+    problems = []
+    for label, dense, regione, grid, family in probes:
+        release()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        res = pixelprobe.pixel_psnr_vs_dense(dense, regione, grid, grid,
+                                             family=family, device=DEVICE)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        _, vae = pixelprobe.decoder_for_family(family, device=DEVICE)
+        places = ({p.device.type for p in vae.decoder.parameters()},
+                  {p.device.type for p in vae.encoder.parameters()})
+        dec_ms = cuda_ms(lambda: pixelprobe.decode_tokens(
+            vae, dense, grid, grid), iters=2)
+        del vae
+        p_lat = psnr(dense, regione)
+        log(f"10d {label} ({family}): {res['pixel_decoder']}; pixel PSNR "
+            f"{res['psnr_pixel_vs_dense']} dB, SSIM "
+            f"{res['ssim_pixel_vs_dense']} (latent PSNR {p_lat:.2f} dB); "
+            f"probe {sec:.3f} s, decode {dec_ms:.2f} ms an image, peak "
+            f"{peak:.2f} GiB over the {base / 2**30:.2f} GiB resident; "
+            f"decoder on {sorted(places[0])}, encoder on {sorted(places[1])}")
+        if not res["psnr_pixel_vs_dense"] >= PSNR_MIN:
+            problems.append(f"{label} pixel PSNR {res['psnr_pixel_vs_dense']}")
+        if places != ({torch.device(DEVICE).type}, {"cpu"}):
+            problems.append(f"{label} placement {places}")
+    release()
+    if problems:
+        fail("10d: " + "; ".join(problems))
+
 
 
 SRC = "regione_tpu_torch/csrc/attention_tma.cu"
@@ -2466,18 +2833,24 @@ def main():
     phase_vae_card_vs_cpu()
     log(f"phase 6d (VAEs, card vs CPU) done in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    paths["step1x"], (pipe, ctx, lat0) = phase_slice(grid)
+    paths["step1x"], (pipe, ctx, lat0), probe5 = phase_slice(grid)
     phase_profile("step1x", pipe, ctx, lat0, grid)
     log(f"phase slice (step1x-edit) done in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     paths["serve_latent"], checks["serve_rows2"] = phase_serve_latent(
         pipe, ctx, grid)
-    del pipe, ctx, lat0         # 24.6 GB of Step1X weights leave the card
-    release()
     log(f"phase serve (a) (step1x-edit, a group of 3) done in "
         f"{time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    qwen, model, qwen_checks, qwen_request = phase_qwen_slice(qwen_grid)
+    te = vl_checkpoint()
+    paths["thinker"] = phase_thinker(pipe, te)
+    log(f"phase 10a (the v1.2 thinker, step1x at full width) done in "
+        f"{time.perf_counter() - t:.1f}s")
+    del pipe, ctx, lat0         # 24.6 GB of Step1X weights leave the card
+    release()
+    t = time.perf_counter()
+    qwen, model, qwen_checks, qwen_request, probe5b = phase_qwen_slice(
+        qwen_grid)
     paths.update({f"qwen_{k}": v for k, v in qwen.items()})
     checks.update(qwen_checks)
     release()
@@ -2495,12 +2868,23 @@ def main():
     log(f"phase 8b (qwen-image-edit, int4 weights and cache) done in "
         f"{time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    flux_paths, flux_checks, flux_out = phase_flux_image()
+    phase_pixelprobe([
+        ("phase 5 step1x request 1, 512x512", *probe5, grid, "flux"),
+        (f"phase 5b qwen int8 cache, {16 * qwen_grid}x{16 * qwen_grid}",
+         *probe5b, qwen_grid, "wan")])
+    log(f"phase 10d (pixel probe, both decoder families) done in "
+        f"{time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    flux_paths, flux_checks, flux_out = phase_flux_image(te=te)
     paths.update(flux_paths)
     checks.update(flux_checks)
     release()
-    log(f"phase 6a/serve (b)/6c (flux-kontext image path, EditService, CLI) "
-        f"done in {time.perf_counter() - t:.1f}s")
+    log(f"phase 6a/serve (b)/6c/10b (flux-kontext image path, EditService, "
+        f"CLI, eval chain) done in {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    phase_lpips()
+    log(f"phase 10c (LPIPS, card vs CPU) done in "
+        f"{time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     paths["flux_w8a8"] = phase_flux_w8a8(flux_out)
     log(f"phase 8a (flux-kontext, W8A8 and the int8 cache) done in "
@@ -2510,7 +2894,7 @@ def main():
     log(f"phase 7 (checkpoint loading at full width) done in "
         f"{time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    paths["encoder"] = phase_encoder()
+    paths["encoder"] = phase_encoder(te=te)
     log(f"phase 9 (the real prompt encoder on the card) done in "
         f"{time.perf_counter() - t:.1f}s")
 

@@ -23,8 +23,9 @@ token grid) and `MockTextEncoder`.  `--int8` / `--int4` quantize the
 backbone in place after loading (`ops.quant.quantize_params`, with
 `--quantize_mods` and `--int4_mods`), `--act_int8` runs the int8 linears
 as W8A8; `--act_int8` needs `--int8` and excludes `--int4`, as in the JAX
-CLI.  The thinker flags are not ported yet and stop the run with a
-message naming their ROADMAP item.
+CLI.  `--enable_thinking` / `--enable_reflection` run demo mode's edits
+through the v1.2 outer loop (`pipelines.thinker.edit_with_reflection`,
+up to `--max_try_cnt` tries), with the JAX CLI's `EchoThinker`.
 """
 
 from __future__ import annotations
@@ -40,14 +41,6 @@ import torch
 
 from regione_tpu_torch.utils.metadata import item_key, resolve_item
 
-# flag -> the title of the ROADMAP queue-1 item its module waits for (by
-# title, not number: the queue is renumbered as items land)
-UNPORTED = {
-    "enable_thinking": "the v1.2 thinker",
-    "enable_reflection": "the v1.2 thinker",
-}
-
-
 def _flag(text: str):
     """--flag value parsed as a bool ("1", "true", "yes" are true)."""
     return text.lower() in ("1", "true", "yes")
@@ -55,7 +48,7 @@ def _flag(text: str):
 
 def make_parser() -> argparse.ArgumentParser:
     """The JAX CLI's flags, defaults and choices; `--device` places the
-    model here (default cuda), and the flags of unported modules say so."""
+    model here (default cuda)."""
     ap = argparse.ArgumentParser("regione-tpu-torch")
     ap.add_argument("--backend", default="step1x-edit",
                     choices=["step1x-edit", "step1x-edit-v1p2", "flux-kontext",
@@ -113,10 +106,6 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--int4_mods", default=None, type=_flag)
     ap.add_argument("--act_int8", action="store_true")
     ap.add_argument("--quantize_mods", default=None, type=_flag)
-    for action in ap._actions:
-        if action.dest in UNPORTED:
-            action.help = (f"not ported yet (ROADMAP queue 1: "
-                           f"{UNPORTED[action.dest]})")
     return ap
 
 
@@ -155,15 +144,6 @@ def _first_item(args):
     return None, None
 
 
-def _refuse_unported(args):
-    parser = make_parser()
-    for flag, item in UNPORTED.items():
-        default = parser.get_default(flag)
-        if getattr(args, flag, default) != default:
-            raise SystemExit(f"--{flag} is not ported to regione_tpu_torch "
-                             f"yet (ROADMAP queue 1: {item})")
-
-
 def resolve_device(name) -> torch.device:
     """The model's device; a CUDA device with no card stops the run."""
     dev = torch.device(name or "cuda")
@@ -192,7 +172,6 @@ def build_pipeline(args):
         "qwen-image-edit": QwenImageEditPipeline,
         "qwen-image-edit-plus": QwenImageEditPlusPipeline,
     }
-    _refuse_unported(args)
     dev = resolve_device(getattr(args, "device", None))
     backend = args.backend
     preset = args.preset or (backend + (":dev" if args.dev else ""))
@@ -277,12 +256,23 @@ def build_pipeline(args):
     return pipe
 
 
-def _edit(pipe, img, prompt, args):
-    """One timed edit: (uint8 image, stats, seconds to the finished image)."""
+def _edit(pipe, img, prompt, args, thinker=False):
+    """One timed edit: (uint8 image, stats, seconds to the finished image).
+    `thinker`: through the v1.2 outer loop (stats None, as in the JAX
+    CLI)."""
+    kw = dict(width=args.size_level, height=args.size_level,
+              resize_to_input=not args.no_resize_back)
     t0 = time.perf_counter()
-    out, stats = pipe(img, prompt, seed=args.seed, width=args.size_level,
-                      height=args.size_level, output_type="uint8",
-                      resize_to_input=not args.no_resize_back)
+    if thinker:
+        from regione_tpu_torch.pipelines.thinker import edit_with_reflection
+        out, _ = edit_with_reflection(
+            pipe, img, prompt, enable_thinking=args.enable_thinking,
+            enable_reflection=args.enable_reflection,
+            max_try_cnt=args.max_try_cnt, seed=args.seed, **kw)
+        stats = None
+    else:
+        out, stats = pipe(img, prompt, seed=args.seed, output_type="uint8",
+                          **kw)
     if pipe.device.type == "cuda":
         torch.cuda.synchronize(pipe.device)
     return out, stats, time.perf_counter() - t0
@@ -300,7 +290,9 @@ def run_demo(pipe, args):
         img = load_image(path)
         if refs:
             img = [img] + refs   # multi-reference conditioning (Plus)
-        out, stats, dt = _edit(pipe, img, prompt, args)
+        out, stats, dt = _edit(
+            pipe, img, prompt, args,
+            thinker=args.enable_thinking or args.enable_reflection)
         times.append(dt)
         save_png(out_dir / f"demo_{i}.{args.save_format}", out)
         print(f"[{i}] {dt:.2f}s edited={getattr(stats, 'edited_tokens', '-')} "

@@ -46,6 +46,6 @@ class Step1XEditPipeline(EditPipelineBase):
 
 class Step1XEditV1P2Pipeline(Step1XEditPipeline):
     """Step1X-Edit v1.2: v1.1's transformer and CFG with its own fitted
-    gamma table (the backend name selects it).  The thinker / reflection
-    loop around it is not ported."""
+    gamma table (the backend name selects it).  Its thinker / reflection
+    loop runs around the call: `pipelines.thinker.edit_with_reflection`."""
     backend = "step1x-edit-v1p2"

@@ -6,8 +6,8 @@ files, image geometry and JSON schema (time_consuming.json, metadata.json).
 `--model_path` (a synthetic diffusers-layout checkpoint) and the weight
 formats (`--int8`, `--int4`, `--act_int8`, `--quantize_mods`,
 `--int4_mods`) give the JAX CLI's image, and its two refusals; the
-thinker flags, not ported, stop the run with their ROADMAP item; the
-reference command-line forms (jsonl / dataset-root `--image_path`, the
+thinker flags run the v1.2 loop (`pipelines.thinker`); the reference
+command-line forms (jsonl / dataset-root `--image_path`, the
 28-step pin, warmup on the first item) behave as in tests/test_cli.py.
 """
 
@@ -130,15 +130,38 @@ def test_build_pipeline_geometry_and_flags():
     assert parser.parse_args([]).device == "cuda"
 
 
-@pytest.mark.parametrize("flag", [["--enable_thinking"],
-                                  ["--enable_reflection"]])
-def test_unported_flags_exit_with_their_roadmap_item(flag, tmp_path):
-    with pytest.raises(SystemExit, match="not ported.*ROADMAP queue 1"):
-        tcli.main(flag + ["--preset", "tiny", "--device", "cpu",
-                          "--image_path", str(_png(tmp_path / "in.png")),
-                          "--prompt", "x", "--output_dir",
-                          str(tmp_path / "o")])
-    assert not (tmp_path / "o").exists()
+@pytest.mark.parametrize("flags", [["--enable_thinking"],
+                                   ["--enable_reflection"],
+                                   ["--enable_thinking", "--enable_reflection",
+                                    "--max_try_cnt", "2"]])
+def test_thinker_flags_run_the_v1p2_loop(flags, tmp_path, monkeypatch):
+    """--enable_thinking / --enable_reflection run demo mode through
+    `edit_with_reflection` with the JAX CLI's EchoThinker: one try, and the
+    PNG of the plain run."""
+    from regione_tpu_torch.pipelines import thinker
+    loops = []
+    real = thinker.edit_with_reflection
+
+    def recording(pipe, image, prompt, **kw):
+        loops.append(kw)
+        return real(pipe, image, prompt, **kw)
+
+    monkeypatch.setattr(thinker, "edit_with_reflection", recording)
+    src = _png(tmp_path / "in.png", shape=(40, 56, 3))
+    args = FAST + ["--backend", "step1x-edit-v1p2", "--preset",
+                   "tiny-step1x", "--image_path", str(src), "--prompt",
+                   "add a hat", "--device", "cpu"]
+    tcli.main(args + ["--output_dir", str(tmp_path / "plain")])
+    assert loops == []
+    tcli.main(args + flags + ["--output_dir", str(tmp_path / "think")])
+    (kw,) = loops
+    assert kw["enable_thinking"] == ("--enable_thinking" in flags)
+    assert kw["enable_reflection"] == ("--enable_reflection" in flags)
+    assert kw["max_try_cnt"] == (2 if "--max_try_cnt" in flags else 3)
+    assert kw["seed"] == 110 and kw["width"] == kw["height"] == 32
+    got = np.asarray(Image.open(tmp_path / "think" / "demo_0.png"))
+    want = np.asarray(Image.open(tmp_path / "plain" / "demo_0.png"))
+    assert got.shape == (32, 32, 3) and np.array_equal(got, want)
 
 
 def test_reference_command_lines(tmp_path):

@@ -1,7 +1,7 @@
 """Guards of the PyTorch port: no JAX, no build at import, no fallback.
 
   * importing `regione_tpu_torch`, every module in it (the VAEs, the FLUX
-    pipeline and the CLI included) and `chip_smoke.py` leaves `jax` and the
+    pipeline, the CLI, `eval.*` and the thinker included) and `chip_smoke.py` leaves `jax` and the
     JAX package `regione_tpu` out of `sys.modules` (in a subprocess: this
     test process has imported jax already through tests/conftest.py);
   * no source file of the port and not `chip_smoke.py` names
@@ -16,9 +16,12 @@
     rebuilds; each source compiles in its own nvcc process, then one link
     (a fake nvcc records the commands); the C signatures the loader binds
     are exactly the `extern "C"` entries of the sources;
-  * the public builders of models and VAEs default to the card.
+  * the public builders of models and VAEs, the eval entry points (the
+    local judges, the thinker's VLM, LPIPS, the pixel probe, the eval
+    CLIs' `--device`) default to the card, and with no card they raise.
 """
 
+import argparse
 import ast
 import inspect
 import os
@@ -50,7 +53,11 @@ bad = [m for m in ("jax", "jaxlib", "triton", "regione_tpu")
 new = {"regione_tpu_torch.models.vae", "regione_tpu_torch.models.vae_wan",
        "regione_tpu_torch.pipelines.flux_kontext",
        "regione_tpu_torch.cli.main", "regione_tpu_torch.pipelines.serve",
-       "regione_tpu_torch.utils.telemetry", "regione_tpu_torch.utils.memplan"}
+       "regione_tpu_torch.utils.telemetry", "regione_tpu_torch.utils.memplan",
+       "regione_tpu_torch.pipelines.thinker"} | {
+       "regione_tpu_torch.eval." + m for m in (
+           "metrics", "merge", "run_metrics", "preprocess", "lpips_torch",
+           "pixelprobe", "viescore", "run_viescore")}
 print(len(names), sorted(new - set(names)) + bad)
 """
 
@@ -62,7 +69,7 @@ def test_port_imports_no_jax_and_builds_nothing(tmp_path):
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     n, bad = res.stdout.split(maxsplit=1)
-    assert int(n) >= 20
+    assert int(n) >= 30
     assert bad.strip() == "[]"
 
 
@@ -239,11 +246,52 @@ def test_signatures_name_exactly_the_c_entries():
 
 
 def test_public_builders_default_to_the_card():
+    from regione_tpu_torch.eval import (lpips_torch, metrics, pixelprobe,
+                                        run_metrics, run_viescore, viescore)
     from regione_tpu_torch.models.vae import AutoencoderKL
     from regione_tpu_torch.models.vae_wan import WanVAE
+    from regione_tpu_torch.pipelines import thinker
     from regione_tpu_torch.weights import from_jax
     for fn in (from_jax.convert_params, from_jax.mmdit_from_jax,
                from_jax.vae_from_jax, from_jax.init_vae_params,
-               from_jax.init_params, AutoencoderKL.__init__, WanVAE.__init__):
+               from_jax.init_params, AutoencoderKL.__init__, WanVAE.__init__,
+               viescore.LocalVLMBackbone.__init__,
+               viescore.MiniCPMVBackbone.__init__, viescore.make_backbone,
+               thinker.local_vlm_thinker, metrics.lpips_distance,
+               metrics.calculate_image_metrics, metrics.run_all_tasks,
+               lpips_torch.load_lpips_npz, pixelprobe.decoder_for_family,
+               pixelprobe.pixel_psnr_vs_dense):
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn.__qualname__
+    # the eval CLIs' --device
+    for cli, argv in ((run_metrics, ["--folder1", "a", "--folder2", "b"]),
+                      (run_viescore, ["--data_dir", "d"])):
+        seen = []
+        parse = argparse.ArgumentParser.parse_args
+
+        def spy(self, args=None, namespace=None):
+            ns = parse(self, args, namespace)
+            seen.append(ns.device)
+            raise SystemExit(0)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(argparse.ArgumentParser, "parse_args", spy)
+            with pytest.raises(SystemExit):
+                cli.main(argv)
+        assert seen == ["cuda"], cli.__name__
+
+
+def test_eval_on_a_missing_card_raises(monkeypatch, tmp_path):
+    """The eval entry points with their default device and no card raise;
+    none of them measures on the CPU instead."""
+    import numpy as np
+
+    from regione_tpu_torch.eval import lpips_torch, pixelprobe, resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    np.savez(tmp_path / "w.npz", conv0_w=np.zeros((1,), np.float32))
+    for call in (lambda: resolve_device("cuda:0"),
+                 lambda: lpips_torch.load_lpips_npz(str(tmp_path / "w.npz")),
+                 lambda: pixelprobe.decoder_for_family("flux")):
+        with pytest.raises(RuntimeError, match="needs a CUDA card"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -43,7 +43,7 @@ from regione_tpu_torch.pipelines import flux_kontext as tfk
 from regione_tpu_torch.pipelines import qwen_image_edit as tqie
 from regione_tpu_torch.pipelines import step1x_edit as tsx
 from regione_tpu_torch.weights.from_jax import mmdit_from_jax, vae_from_jax
-from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
+from torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 VAES = {
     "kl": (JV.VAEConfig(block_out_channels=(8, 16), latent_channels=2,
