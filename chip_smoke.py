@@ -113,7 +113,22 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
          with the dry-run and the local Qwen2.5-VL judge: CSV PSNR against
          the PNGs', `Latency:` against the timing lists;
      10c. LPIPS on the card against the CPU at 512^2 and 1024^2 (TF32
-         convs off), ms a pair.
+         convs off), ms a pair;
+  11. the sharded port (`parallel.sharding`; run after 7, on its Step1X
+     and Qwen checkpoints) on 4 ranks, each a process of its own on the
+     one card, joined by gloo through the host (NCCL refuses two ranks on
+     one device); each rank reads only its slices of the files:
+     11a. Qwen at grid 64 with the int8 cache on tp 4: a dense and a
+         RegionE latent edit; then its RegionE edit with int4 weights on
+         (dp 2, tp 2);
+     11b. Step1X (with its connector) at grid 32 on (dp 2, tp 2): one
+         `edit_latents_batch(mesh=)` of two requests, one per dp rank;
+     11c. NCCL at world size 1: `shard_params` at tp 1 and one RegionE
+         edit, bit for bit the unsharded one;
+     each against the unsharded edit of the same checkpoint: equal plan
+     statistics, latent PSNR >= 40 dB on every rank, each rank's weight
+     bytes equal to memplan's, its launches of K1, K2 / K2q and K3.  The
+     seconds are gloo's through the host, not tensor-parallel speed.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is the kernels' JSON record, the last line the
 device record.  Imports no JAX and nothing of the JAX package: the port
@@ -2072,6 +2087,27 @@ def _bf16_values(module):
             p.copy_(p.to(torch.bfloat16))
 
 
+# phase 7's families: the backend of each naming, and the depth cut of its
+# checkpoint (reduced: 2 double and 4 single blocks; Qwen 2 double;
+# Step1X's connector at its published 2 blocks)
+CKPT_BACKENDS = {"flux": "flux-kontext", "step1x": "step1x-edit",
+                 "qwen": "qwen-image-edit"}
+CKPT_DEPTH = {"flux": dict(depth_double=2, depth_single=4),
+              "step1x": dict(depth_double=2, depth_single=4),
+              "qwen": dict(depth_double=2)}
+
+
+def ckpt_root():
+    from regione_tpu_torch.ops._build import BUILD_DIR
+    return BUILD_DIR.parent / "ckpt"           # inside the checkout
+
+
+def ckpt_config(naming):
+    from regione_tpu_torch.models import presets
+    return dataclasses.replace(presets.get_config(CKPT_BACKENDS[naming]),
+                               **CKPT_DEPTH[naming])
+
+
 def phase_checkpoints(grid=32, size=512, vae_cfgs=None):
     """7: checkpoint loading at full width, the depth cut (reduced: 2 double
     and 4 single blocks; Qwen 2 double; Step1X's connector at its published
@@ -2098,21 +2134,18 @@ def phase_checkpoints(grid=32, size=512, vae_cfgs=None):
     from regione_tpu_torch.models.text_encoders import MockTextEncoder
     from regione_tpu_torch.models.vae import VAEConfig
     from regione_tpu_torch.models.vae_wan import WanVAEConfig
-    from regione_tpu_torch.ops._build import BUILD_DIR
     from regione_tpu_torch.ops.quant import quantize_params
     from regione_tpu_torch.weights import checkpoint
     from regione_tpu_torch.weights.from_jax import init_params, init_vae_params
     dev = torch.device(DEVICE)
     kl, wan = vae_cfgs or (VAEConfig(), WanVAEConfig())
-    families = {"flux": ("flux-kontext", dict(depth_single=4), kl),
-                "step1x": ("step1x-edit", dict(depth_single=4), kl),
-                "qwen": ("qwen-image-edit", dict(), wan)}
-    out_root = BUILD_DIR.parent / "ckpt"           # inside the checkout
+    families = {"flux": kl, "step1x": kl, "qwen": wan}
+    out_root = ckpt_root()
     image = structured_image(17, size, size)
-    for naming, (backend, depth, vae_cfg) in families.items():
+    for naming, vae_cfg in families.items():
+        backend = CKPT_BACKENDS[naming]
         preset = f"{backend}:ckpt"
-        cfg = dataclasses.replace(presets.get_config(backend), depth_double=2,
-                                  **depth)
+        cfg = ckpt_config(naming)
         presets.PRESETS[preset] = cfg
         model = init_params(cfg, torch.Generator(dev).manual_seed(7), dev)
         vae = init_vae_params(vae_cfg, torch.Generator(dev).manual_seed(8),
@@ -2193,7 +2226,8 @@ def phase_checkpoints(grid=32, size=512, vae_cfgs=None):
                 fail("7: the quantized checkpoint did not round-trip")
             del back, want, got
             path.unlink()
-        shutil.rmtree(root, ignore_errors=True)
+            shutil.rmtree(root, ignore_errors=True)
+        # Step1X's and Qwen's directories stay for phase 11
         del model, vae, loaded, mine, outs
         release()
 
@@ -2772,6 +2806,385 @@ def phase_pixelprobe(probes):
         fail("10d: " + "; ".join(problems))
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the sharded port (tensor and data parallelism)
+# ---------------------------------------------------------------------------
+
+SHARD_WORLD = 4
+SHARD_LIMIT_S = 420     # the ranks' hard limit; they are killed after it
+SHARD_PSNR_MIN = 40.0   # sharded against unsharded (PERF.md section 2)
+STEP1X_RE = dict(warmup_step=6, post_step=2, refresh_step=(16,),
+                 threshold=0.88, cache_threshold=0.02)
+
+
+def _shard_configs():
+    """phase 11's configs: Qwen with the int8 cache, Step1X (bf16 cache),
+    each at phase 7's depth cut."""
+    return (dataclasses.replace(ckpt_config("qwen"), cache_int8=True),
+            ckpt_config("step1x"))
+
+
+def _device_ctx(x, pipe, grid):
+    import torch
+    dev, dt = torch.device(DEVICE), pipe.cfg.dtype
+    txt = x["txt"].to(dev, dt)
+    pooled = None if x.get("pooled") is None else x["pooled"].to(dev, dt)
+    return _ctx(txt, pooled, x["cond"],
+                pipe.build_rope(grid, grid, txt.shape[1]))
+
+
+def sharded_rank(work: str, rank: str, world: str) -> None:
+    """One rank of phase 11, in its own process on the one card: joins the
+    gloo group of the file store in `work`, loads its shards of phase 7's
+    checkpoints and runs 11a (Qwen on tp 4: a dense and a RegionE edit;
+    then the int4 checkpoint on (dp 2, tp 2): a RegionE edit) and 11b
+    (Step1X on (dp 2, tp 2): `edit_latents_batch` of two requests).
+    Writes its latents, plan statistics, launch counts, weight and cache
+    bytes and seconds to work/rank<rank>.pt."""
+    import datetime
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+    from regione_tpu_torch.core.config import DEFAULT_PARAMS, RegionEParams
+    from regione_tpu_torch.models.mmdit import init_cache
+    from regione_tpu_torch.ops import _build
+    from regione_tpu_torch.ops.quant import quantized_bytes
+    from regione_tpu_torch.parallel.sharding import make_mesh
+    from regione_tpu_torch.pipelines.qwen_image_edit import (
+        QwenImageEditPipeline)
+    from regione_tpu_torch.pipelines.step1x_edit import Step1XEditPipeline
+    from regione_tpu_torch.utils import memplan
+    from regione_tpu_torch.weights.checkpoint import mmdit_from_checkpoint
+    from regione_tpu_torch.weights.convert import load_converted
+
+    work, rank, world = Path(work), int(rank), int(world)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()                 # built by the parent's phase 2
+    dist.init_process_group("gloo", init_method=f"file://{work}/store",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    inputs = torch.load(work / "inputs.pt", weights_only=False)
+    qcfg, scfg = _shard_configs()
+    root = ckpt_root()
+    res = {}
+
+    def weights(label, model, mesh, **plan_kw):
+        plan = memplan.plan(model.cfg, tp=mesh.size(1), **plan_kw)
+        res[label + "_bytes"] = (quantized_bytes(model), plan.param_bytes,
+                                 getattr(model, "loaded_bytes", None))
+
+    # 11a: Qwen, tp 4
+    mesh4 = make_mesh(dp=1)
+    t = time.perf_counter()
+    model = load_converted(root / "qwen", qcfg, load_text_encoder=False,
+                           device=DEVICE, mesh=mesh4)[0]
+    res["qwen_load_s"] = time.perf_counter() - t
+    weights("qwen", model, mesh4)
+    pipe = QwenImageEditPipeline(model, DEFAULT_PARAMS["qwen-image-edit"])
+    x, grid = inputs["qwen"], inputs["qwen_grid"]
+    ctx = _device_ctx(x, pipe, grid)
+    lat0 = x["lat0"].to(DEVICE)
+    for name, dense in (("qwen_dense", True), ("qwen", False)):
+        out, st, sec, counts, peak = timed_edit(pipe, lat0, ctx, grid,
+                                                dense_only=dense)
+        res[name] = (out, st and _plan(st), sec, counts, peak)
+    del model, pipe
+    release()
+    # 11a: the int4 checkpoint, (dp 2, tp 2): the request replicated over dp
+    mesh22 = make_mesh(dp=2)
+    t = time.perf_counter()
+    model = mmdit_from_checkpoint(work / "qwen_int4.safetensors", qcfg,
+                                  DEVICE, mesh=mesh22)
+    res["qwen_int4_load_s"] = time.perf_counter() - t
+    weights("qwen_int4", model, mesh22, int8=True, bits=4)
+    pipe = QwenImageEditPipeline(model, DEFAULT_PARAMS["qwen-image-edit"])
+    out, st, sec, counts, peak = timed_edit(pipe, lat0, ctx, grid)
+    res["qwen_int4"] = (out, _plan(st), sec, counts, peak)
+    del model, pipe
+    release()
+    # 11b: Step1X with its connector, (dp 2, tp 2), a group of two
+    t = time.perf_counter()
+    model = load_converted(root / "step1x", scfg, load_text_encoder=False,
+                           device=DEVICE, mesh=mesh22)[0]
+    res["step1x_load_s"] = time.perf_counter() - t
+    weights("step1x", model, mesh22)
+    pipe = Step1XEditPipeline(model, RegionEParams(**STEP1X_RE),
+                              true_cfg_scale=6.0)
+    grid = inputs["step1x_grid"]
+    ctxs = [_device_ctx(x, pipe, grid) for x in inputs["step1x"]]
+    lats = [x["lat0"].to(DEVICE) for x in inputs["step1x"]]
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    outs, stats = pipe.edit_latents_batch(lats, ctxs, grid, grid,
+                                          mesh=mesh22)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    (key, sampler), = pipe._samplers.items()
+    cache = init_cache(scfg, key[3], grid * grid + key[4], "meta",
+                       tp=mesh22.size(1))
+    res["step1x"] = ([o.cpu().numpy() for o in outs],
+                     [_plan(s) for s in stats], sec, read_counts())
+    res["step1x_cache"] = ({k: tuple(v.shape) for k, v in cache.items()},
+                           sum(v.numel() * v.element_size()
+                               for v in cache.values()))
+    torch.save(res, work / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _launch_ranks(work, world):
+    """The ranks, each a process of its own with its output in
+    work/rank<r>.log."""
+    import os
+    from pathlib import Path
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(here))
+    code = ("import sys, chip_smoke; "
+            "chip_smoke.sharded_rank(*sys.argv[1:])")
+    procs = []
+    for r in range(world):
+        with open(work / f"rank{r}.log", "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, str(work), str(r), str(world)],
+                cwd=here, env=env, stdout=out, stderr=subprocess.STDOUT))
+    return procs
+
+
+def _wait_ranks(procs, deadline):
+    """Wait for the ranks; kill them all at the deadline or as soon as one
+    fails.  Returns the problem, or None."""
+    problem = None
+    while any(p.poll() is None for p in procs):
+        if any(p.returncode not in (None, 0) for p in procs):
+            problem = "a rank failed"
+            break
+        if time.monotonic() > deadline:
+            problem = f"the ranks ran past {SHARD_LIMIT_S} s"
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    for p in procs:
+        p.wait()
+    if problem is None and any(p.returncode for p in procs):
+        problem = "a rank failed"
+    return problem
+
+
+def phase_sharded(qwen_grid=64, step1x_grid=32):
+    """11: the sharded port on phase 7's full-width checkpoints (depth cut:
+    2 double blocks for Qwen, 2 double + 4 single and the 2-block connector
+    for Step1X), on SHARD_WORLD ranks in their own processes on the one
+    card, joined by gloo through the host (NCCL refuses two ranks on one
+    device).  Each rank loads only its slices from the files.
+      11a. Qwen at grid 64 with the int8 cache on tp 4: a dense and a
+           RegionE latent edit; then the same request's RegionE edit with
+           int4 weights (the parent's `quantize_params(bits=4)`, written by
+           `checkpoint.save`) on (dp 2, tp 2), the request replicated over
+           dp;
+      11b. Step1X (bf16 cache) at grid 32 on (dp 2, tp 2):
+           `edit_latents_batch(mesh=)` of two requests with partial
+           partitions of different sizes, one per dp rank;
+      11c. NCCL at world size 1 (in this process): `shard_params` at tp 1
+           on the Step1X model and one RegionE edit, bit-equal to the
+           unsharded one.
+    Each is held against the unsharded edit of the same checkpoint here:
+    equal plan statistics, latent PSNR >= 40 dB on every rank, each rank's
+    weight bytes equal to memplan.plan(tp=)'s.  Returns {path: launch
+    counts of rank 0} for the record."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from regione_tpu_torch.core.config import DEFAULT_PARAMS, RegionEParams
+    from regione_tpu_torch.models.mmdit import init_cache
+    from regione_tpu_torch.ops.quant import quantize_params
+    from regione_tpu_torch.parallel.sharding import make_mesh, shard_params
+    from regione_tpu_torch.pipelines.qwen_image_edit import (
+        QwenImageEditPipeline)
+    from regione_tpu_torch.pipelines.step1x_edit import Step1XEditPipeline
+    from regione_tpu_torch.weights import checkpoint
+    from regione_tpu_torch.weights.convert import load_converted
+
+    qcfg, scfg = _shard_configs()
+    root = ckpt_root()
+    work = root.parent / "sharded"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    # the unsharded references, and the requests
+    model = load_converted(root / "qwen", qcfg, load_text_encoder=False,
+                           device=DEVICE)[0]
+    qre = DEFAULT_PARAMS["qwen-image-edit"]
+    pipe = QwenImageEditPipeline(model, qre)
+    g = qwen_grid
+    rope = pipe.build_rope(g, g, T_TXT)
+    rng = np.random.default_rng(131)
+    txt = torch.from_numpy(rng.standard_normal(
+        (2, T_TXT, qcfg.txt_in_dim), np.float32)).to(DEVICE, qcfg.dtype)
+    r, lat0 = _request(qcfg, 132, g)
+    cond = structured_condition(pipe, pipe.sampler_for(g, g, T_TXT, 2), qre,
+                                g, txt, None, rope, lat0, r, "11a qwen")
+    ctx = _ctx(txt, None, cond, rope)
+    refs = {"qwen_dense": timed_edit(pipe, lat0, ctx, g, dense_only=True),
+            "qwen": timed_edit(pipe, lat0, ctx, g)}
+    inputs = {"qwen": {"lat0": lat0.cpu(), "txt": txt.cpu(),
+                       "cond": cond},
+              "qwen_grid": g, "step1x_grid": step1x_grid}
+    quantize_params(model, bits=4)
+    checkpoint.save(work / "qwen_int4.safetensors", model.state_dict())
+    refs["qwen_int4"] = timed_edit(QwenImageEditPipeline(model, qre), lat0,
+                                   ctx, g)
+    del model, pipe
+    release()
+    smodel = load_converted(root / "step1x", scfg, load_text_encoder=False,
+                            device=DEVICE)[0]
+    spipe = Step1XEditPipeline(smodel, RegionEParams(**STEP1X_RE),
+                               true_cfg_scale=6.0)
+    g = step1x_grid
+    rope = spipe.build_rope(g, g, T_TXT)
+    rng = np.random.default_rng(141)
+    stxt = torch.from_numpy(rng.standard_normal(
+        (2, T_TXT, scfg.connector.in_dim), np.float32)).to(DEVICE,
+                                                           scfg.dtype)
+    sampler = spipe.sampler_for(g, g, T_TXT, 2)
+    lats, ctxs, sx = [], [], []
+    for k, seed in enumerate((142, 143)):
+        r, l0 = _request(scfg, seed, g)
+        c = structured_condition(spipe, sampler, spipe.re, g, stxt, None,
+                                 rope, l0, r, f"11b step1x request {k}",
+                                 span=5 + 4 * k)
+        lats.append(l0)
+        ctxs.append(_ctx(stxt, None, c, rope))
+        sx.append({"lat0": l0.cpu(), "txt": stxt.cpu(), "cond": c})
+    inputs["step1x"] = sx
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    souts, sstats = spipe.edit_latents_batch(lats, ctxs, g, g)
+    torch.cuda.synchronize()
+    refs["step1x"] = ([o.cpu().numpy() for o in souts], sstats,
+                      time.perf_counter() - t, read_counts())
+    whole_cache = sum(v.numel() * v.element_size() for v in init_cache(
+        scfg, 4, 2 * g * g, "meta").values())
+    torch.save(inputs, work / "inputs.pt")
+    log(f"11: unsharded references and requests in "
+        f"{time.perf_counter() - t_phase:.1f}s; launching {SHARD_WORLD} "
+        f"gloo ranks on the one card")
+    t_ranks = time.monotonic()
+    procs = _launch_ranks(work, SHARD_WORLD)
+    try:
+        # 11c while the ranks run: NCCL at world size 1, in this process
+        dist.init_process_group("nccl", init_method=f"file://{work}/nccl",
+                                rank=0, world_size=1)
+        try:
+            want = timed_edit(spipe, lats[0], ctxs[0], g)
+            shard_params(smodel, make_mesh(device_type="cuda"))
+            got = timed_edit(spipe, lats[0], ctxs[0], g)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        problem = _wait_ranks(procs, t_ranks + SHARD_LIMIT_S)
+    ranks_s = time.monotonic() - t_ranks
+    for r in range(SHARD_WORLD):
+        text = (work / f"rank{r}.log").read_text(errors="replace")
+        for line in text.splitlines()[-40 if problem else -6:]:
+            log(f"  rank {r}: {line}")
+    if problem:
+        fail(f"11: {problem}")
+    same = np.array_equal(want[0], got[0]) and \
+        _plan(want[1]) == _plan(got[1])
+    log(f"11c nccl world 1, shard_params at tp 1, step1x RegionE edit: "
+        f"{'bit-equal to' if same else 'DIFFERS FROM'} the unsharded edit "
+        f"(edited_tokens {got[1].edited_tokens}, {got[2]:.3f} s against "
+        f"{want[2]:.3f} s, while the gloo ranks ran), launches {got[3]}")
+    problems = [] if same else ["11c differs from the unsharded edit"]
+    if not 0 < refs["qwen"][1].edited_tokens < qwen_grid ** 2:
+        problems.append("11a: the partition is not partial")
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+             for r in range(SHARD_WORLD)]
+    for name, label in (("qwen_dense", "11a qwen dense, tp 4"),
+                        ("qwen", "11a qwen RegionE int8 cache, tp 4"),
+                        ("qwen_int4", "11a qwen int4 weights RegionE, "
+                                      "(dp 2, tp 2)")):
+        ref, ref_st, ref_s, _, _ = refs[name]
+        for r, res in enumerate(ranks):
+            out, st, sec, counts, peak = res[name]
+            p = psnr(ref, out)
+            want_st = ref_st and _plan(ref_st)
+            log(f"{label} rank {r}: latent PSNR {p:.2f} dB against the "
+                f"unsharded edit, plan {st} (unsharded {want_st}), "
+                f"{sec:.3f} s (unsharded {ref_s:.3f} s; gloo through the "
+                f"host on one card), peak {peak:.2f} GiB, launches "
+                f"K1 {counts['attention']} K2q "
+                f"{counts['attention_rows2_quant']} K3 "
+                f"{counts['fused_partition']} (all {counts})")
+            if not p >= SHARD_PSNR_MIN or st != want_st:
+                problems.append(f"{label} rank {r}: PSNR {p:.2f} or plan")
+            if not qwen_launches_ok(name, counts):
+                problems.append(f"{label} rank {r}: launches {counts}")
+    ref_outs, ref_stats, ref_s, ref_counts = refs["step1x"]
+    edited = [st.edited_tokens for st in ref_stats]
+    if not (all(0 < e < step1x_grid ** 2 for e in edited)
+            and edited[0] != edited[1]):
+        problems.append(f"11b: partitions {edited} not partial or equal")
+    for r, res in enumerate(ranks):
+        outs, stats, sec, counts = res["step1x"]
+        ps = [psnr(a, b) for a, b in zip(ref_outs, outs)]
+        want_st = [_plan(s) for s in ref_stats]
+        shapes, cache_bytes = res["step1x_cache"]
+        log(f"11b step1x edit_latents_batch of 2 on (dp 2, tp 2) rank {r}: "
+            f"PSNR {', '.join(f'{p:.2f}' for p in ps)} dB against the "
+            f"unsharded group, plans {stats} (unsharded {want_st}), "
+            f"{sec:.3f} s (unsharded {ref_s:.3f} s; gloo through the host "
+            f"on one card), launches {counts}; its cache set {shapes['dk']} "
+            f"and beside it: {cache_bytes} B against the whole group's "
+            f"{whole_cache} B")
+        caps = {s["capacity"] for s in stats}
+        if not all(p >= SHARD_PSNR_MIN for p in ps) or stats != want_st \
+                or len(caps) != 1:
+            problems.append(f"11b rank {r}: PSNR {ps} or plans {stats}")
+        if shapes["dk"][1:3] != (2, scfg.heads // 2) or \
+                cache_bytes * 4 != whole_cache:
+            problems.append(f"11b rank {r}: cache {shapes} {cache_bytes}")
+        if counts["fused_partition"] != 1 or counts["attention_rows2"] < 1:
+            problems.append(f"11b rank {r}: launches {counts}")
+        for label in ("qwen", "qwen_int4", "step1x"):
+            have, plan, read = res[label + "_bytes"]
+            log(f"11 {label} rank {r}: weights {have} B on the card, "
+                f"memplan.plan(tp=) {plan} B, read from the file {read} B, "
+                f"loaded in {res[label + '_load_s']:.2f} s")
+            if have != plan:
+                problems.append(f"11 {label} rank {r}: {have} != {plan} B")
+    log(f"11: the ranks ran {ranks_s:.1f} s (gloo through the host on one "
+        f"card: not a measure of tensor-parallel speed)")
+    del smodel, spipe
+    release()
+    for naming in ("step1x", "qwen"):          # phase 9 reads root / "vl"
+        shutil.rmtree(root / naming, ignore_errors=True)
+    shutil.rmtree(work, ignore_errors=True)
+    if problems:
+        fail("11: " + "; ".join(problems))
+    return {"sharded_" + k: ranks[0][k][3]
+            for k in ("qwen", "qwen_int4", "step1x")}
+
+
+def qwen_launches_ok(name, counts) -> bool:
+    """A sharded Qwen edit's launches: K1 always; a RegionE edit K3 once
+    and K2q (its cache is quantized) but no K2."""
+    if counts["attention"] <= 0:
+        return False
+    if name == "qwen_dense":
+        return counts["fused_partition"] == 0
+    return (counts["fused_partition"] == 1
+            and counts["attention_rows2_quant"] > 0
+            and counts["attention_rows2"] == 0)
+
+
 
 SRC = "regione_tpu_torch/csrc/attention_tma.cu"
 JAX_FA = "regione_tpu/ops/flash_attention.py"
@@ -2893,6 +3306,10 @@ def main():
     phase_checkpoints()
     log(f"phase 7 (checkpoint loading at full width) done in "
         f"{time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    paths.update(phase_sharded())
+    log(f"phase 11 (the sharded port, gloo through the host on one card) "
+        f"done in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     paths["encoder"] = phase_encoder(te=te)
     log(f"phase 9 (the real prompt encoder on the card) done in "

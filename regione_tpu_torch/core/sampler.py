@@ -28,6 +28,12 @@ Backends plug in with two hooks:
   rags_forward(lat_act [B,K,C] f32, sigma, cache, ids, ctx) -> (v, cache)
 with ids [K] (`sample`: one partition for the batch) or [B, K]
 (`sample_batch`: one per image).
+
+On a (dp, tp) mesh (`parallel.sharding`) the ranks agree at the host
+sync: the tp ranks take tp rank 0's partition masks (one broadcast, so
+every rank of a group launches collectives of the same sizes), and in
+`sample_batch` the dp ranks gather their edited counts, so the whole group
+shares one capacity bucket, as the unsharded group does.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from regione_tpu_torch.core.schedule import (
 from regione_tpu_torch.core import masking
 from regione_tpu_torch.core.partition import (select_edited_mask,
                                               select_edited_masks)
+from regione_tpu_torch.parallel.sharding import dp_all_gather, tp_broadcast
 
 
 @dataclasses.dataclass
@@ -85,10 +92,11 @@ class RegionESampler:
 
     @torch.inference_mode()
     def sample(self, latents0, cond_latent, ctx, forced_mask=None,
-               timed: bool = False):
+               timed: bool = False, mesh=None):
         """Run the accelerated denoise.  latents0/cond_latent:
         [B, S_noise, C].  `forced_mask` [S] overrides the adaptive
-        partition; `timed` records per-segment wall time (one extra sync).
+        partition; `timed` records per-segment wall time (one extra sync);
+        `mesh`: the (dp, tp) mesh of a sharded model.
         Returns (final latents fp32, stats)."""
         s_noise = latents0.shape[1]
         t0 = time.perf_counter()
@@ -98,7 +106,7 @@ class RegionESampler:
             # the later segments update their latents; keep the caller's
             lat = latents0.float().clone()
         lat, mask, ids_sorted, cache = self._part(lat, cond_latent, ctx,
-                                                  forced_mask)
+                                                  forced_mask, mesh=mesh)
         # THE one host sync: the edited count picks the capacity bucket;
         # the id set itself stays on the device
         n_edit = int(mask.sum())
@@ -137,7 +145,8 @@ class RegionESampler:
         return lat, stats
 
     @torch.inference_mode()
-    def sample_batch(self, latents0_b, cond_b, ctx_b, forced_masks=None):
+    def sample_batch(self, latents0_b, cond_b, ctx_b, forced_masks=None,
+                     mesh=None):
         """Edit B images at once, each with its own partition: the JAX
         package's `sample_batch` (its `vmap` over requests) with the batch
         axis written out.  latents0_b / cond_b: [B, S_noise, C], one image
@@ -148,6 +157,8 @@ class RegionESampler:
         capacity bucket of the largest count (a pinned `rags_capacity`
         truncates each image's ids to it, as the JAX package's
         `mask_to_padded_ids` does, and leaves the masks as they are).
+        On a `mesh` the rows are this dp rank's images: the capacity
+        bucket is that of the largest count over every dp rank's.
         Returns (latents [B, S, C] fp32, one SampleStats per image: its own
         edited_tokens, the shared capacity)."""
         s_noise = latents0_b.shape[1]
@@ -156,10 +167,14 @@ class RegionESampler:
         else:
             lat = latents0_b.float().clone()
         lat, mask, ids_sorted, cache = self._part(
-            lat, cond_b, ctx_b, forced_masks, per_image=True)
-        counts = mask.sum(-1).tolist()   # THE one host sync: B counts
+            lat, cond_b, ctx_b, forced_masks, per_image=True, mesh=mesh)
+        counts = mask.sum(-1)
+        top = counts.max()[None]
+        if mesh is not None:
+            top = dp_all_gather(mesh, top).max()
+        counts = counts.tolist()         # THE one host sync: B counts
         cap = self.re.rags_capacity or pick_capacity(
-            max(counts), s_noise, self.re.capacity_granularity)
+            int(top), s_noise, self.re.capacity_granularity)
         # each row: its edited ids ascending, then ids _rest pads with the
         # sentinel (mask_to_padded_ids of the row's mask, on the device)
         lat, _ = self._rest(lat, ids_sorted[:, :cap], mask, cache, ctx_b)
@@ -194,10 +209,11 @@ class RegionESampler:
                                  self.plan[: self.re.warmup_step - 1], ctx)
 
     def _part(self, latents, cond_latent, ctx, forced_mask=None,
-              per_image=False):
+              per_image=False, mesh=None):
         """Partition split-step: one cache-writing forward, the edited mask
-        ([S]; per_image: [B, S], one per image), and the edited/unedited
-        split step.  Returns the masks' edited-first id orders beside."""
+        ([S]; per_image: [B, S], one per image; on a mesh tp rank 0's), and
+        the edited/unedited split step.  Returns the masks' edited-first id
+        orders beside."""
         part = self.plan[self.re.warmup_step - 1]
         assert part.sched_role == SCHED_PARTITION
         lat = latents.float()
@@ -214,6 +230,8 @@ class RegionESampler:
                 grid_h=self.grid_h, grid_w=self.grid_w,
                 erosion_dilation=self.re.erosion_dilation,
                 similarity_type=self.re.similarity_type)
+        if mesh is not None:
+            mask = tp_broadcast(mesh, mask)
         # edited rows take the Euler step, unedited rows long-jump to the
         # refresh sigma
         lat = masking.where_rows(mask, lat + part.dt * v,

@@ -19,16 +19,29 @@ Quantized linears (`ops.quant.quantize_params` puts them in place of
     x channel scale, + b;
   * `Int4Linear`: two matmuls over the input halves (the packed byte holds
     column i and i + in/2), summed in x's dtype, + b.
+
+Tensor parallelism (`parallel.sharding.shard_params` puts a
+`ShardedLinear` in place of each linear that the sharding rules split):
+  * column-parallel: the rank's output features, as the unsharded layer
+    computes them;
+  * row-parallel: the rank's input features; the partial products are
+    summed by an `all_reduce` over the tp group and the bias is added once,
+    after it.  Under W8A8 the row amax is all-reduced (MAX) first, so the
+    codes are the unsharded ones, and the exact int32 products are summed;
+  * a modulation is column-parallel and all-gathers its small [B, n*h]
+    output before it is chunked.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import threading
-from typing import Sequence
+from typing import Any, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -105,11 +118,16 @@ def act_int8_active() -> bool:
     return getattr(_ACT_INT8, "on", False)
 
 
-def quantize_rows(x):
+def quantize_rows(x, tp: "TPGroup | None" = None):
     """Dynamic per-row symmetric int8: x [..., K] -> (int8 [..., K], fp32
-    row scales [..., 1])."""
+    row scales [..., 1]).  With `tp`, x holds this rank's columns of the
+    rows and the amax is all-reduced over the group, so the scales (and
+    the codes) are those of the whole rows."""
     xf = x.float()
-    s_a = xf.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-12
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if tp is not None:
+        tp.all_reduce(amax, dist.ReduceOp.MAX)
+    s_a = amax / 127.0 + 1e-12
     x8 = torch.clamp(torch.round(xf / s_a), -127, 127).to(torch.int8)
     return x8, s_a
 
@@ -141,6 +159,33 @@ def _frozen(t):
     return nn.Parameter(t, requires_grad=False)
 
 
+def int8_product(x, w_q, scale):
+    """Weight-only int8: x @ (w_q * scale)^T in x's dtype, no bias."""
+    return F.linear(x, (w_q.float() * scale).to(x.dtype))
+
+
+def int8_epilogue(acc, s_a, scale, out_dtype):
+    """W8A8: the int32 product cast to `out_dtype`, x row scale, x channel
+    scale (no bias)."""
+    out = acc.to(out_dtype) * s_a.to(out_dtype)
+    return out * scale.view(-1).to(out_dtype)
+
+
+def int4_product(x, w_qp, scale4):
+    """Int4: two matmuls over the input halves (`Int4Linear`), each half's
+    codes times its groups' scales, summed in x's dtype; no bias."""
+    d_out, half = w_qp.shape
+    g2 = scale4.shape[1] // 2
+    lo, hi = unpack_int4(w_qp)
+
+    def dq(w4, sc):
+        wg = w4.float().reshape(d_out, g2, half // g2) * sc[..., None]
+        return wg.reshape(d_out, half).to(x.dtype)
+
+    return (F.linear(x[..., :half], dq(lo, scale4[:, :g2]))
+            + F.linear(x[..., half:], dq(hi, scale4[:, g2:])))
+
+
 class Int8Linear(nn.Module):
     """An int8 linear ({"w_q": [out, in], "scale": [out, 1], "b"}, JAX's
     "w_q" / "scale" transposed)."""
@@ -153,14 +198,13 @@ class Int8Linear(nn.Module):
     def forward(self, x):
         if act_int8_active():
             return self.from_rows(*quantize_rows(x), x.dtype)
-        w = (self.w_q.float() * self.scale).to(x.dtype)
-        return F.linear(x, w) + self.bias
+        return int8_product(x, self.w_q, self.scale) + self.bias
 
     def from_rows(self, x8, s_a, out_dtype):
         """W8A8 over pre-quantized rows (`quantize_rows`): the int32
         product cast to `out_dtype`, x row scale, x channel scale, + b."""
-        out = int_mm(x8, self.w_q).to(out_dtype) * s_a.to(out_dtype)
-        return out * self.scale.view(-1).to(out_dtype) + self.bias
+        return int8_epilogue(int_mm(x8, self.w_q), s_a, self.scale,
+                             out_dtype) + self.bias
 
 
 class Int4Linear(nn.Module):
@@ -173,24 +217,160 @@ class Int4Linear(nn.Module):
             _frozen(b)
 
     def forward(self, x):
-        d_out, half = self.w_qp.shape
-        g2 = self.scale4.shape[1] // 2
-        lo, hi = unpack_int4(self.w_qp)
+        return int4_product(x, self.w_qp, self.scale4) + self.bias
 
-        def dq(w4, sc):
-            wg = w4.float().reshape(d_out, g2, half // g2) * sc[..., None]
-            return wg.reshape(d_out, half).to(x.dtype)
 
-        acc = (F.linear(x[..., :half], dq(lo, self.scale4[:, :g2]))
-               + F.linear(x[..., half:], dq(hi, self.scale4[:, g2:])))
-        return acc + self.bias
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TPGroup:
+    """This rank's tensor-parallel group: the process group, the rank's
+    index in it and its size."""
+    group: Any
+    rank: int
+    size: int
+
+    def all_reduce(self, t, op=dist.ReduceOp.SUM):
+        """In place, and returned."""
+        dist.all_reduce(t, op=op, group=self.group)
+        return t
+
+    def all_gather(self, t):
+        """The ranks' tensors concatenated along the last axis, in rank
+        order."""
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t, group=self.group)
+        return torch.cat(parts, dim=-1)
+
+
+def take(t, dim: int, ranges):
+    """The index ranges [(lo, hi), ...] of `t` along `dim`, concatenated
+    (a view for one range)."""
+    parts = [t.narrow(dim, lo, hi - lo) for lo, hi in ranges]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
+ROLE_COLUMN, ROLE_ROW, ROLE_GATHER = "column", "row", "gather"
+
+
+@dataclasses.dataclass
+class LinearShard:
+    """How one linear splits on a tp rank (`parallel.sharding.shard_plan`).
+
+    kind: "linear" (`nn.Linear`), "int8" or "int4" (the quantized linears).
+    role: ROLE_COLUMN (output features split), ROLE_ROW (input features
+        split: partial products all-reduced, then + bias) or ROLE_GATHER
+        (a modulation: column-parallel, then all-gathered).
+    specs: each leaf's partition spec in the port's layout.  The JAX rules
+        leave some int4 weights whole (the connector's, int4 modulations):
+        such a layer computes the whole product and keeps its output
+        columns (`out_ranges`, for its split bias), or, row-parallel,
+        gathers its input columns first.
+    in_ranges: a row-parallel layer's input columns; `local_input` False
+        when its input arrives whole (the connector's embedders), which
+        the layer then slices itself.
+    scale_groups: int4 row-parallel: the global scale group of each local
+        group (`scale4` stays whole, as the JAX rules keep it).
+    """
+    kind: str
+    role: str
+    specs: dict
+    out_ranges: list
+    in_ranges: list
+    local_input: bool = True
+    scale_groups: list | None = None
+
+    @property
+    def split(self) -> bool:
+        """The weight leaves are sliced."""
+        return any("tp" in s for leaf, s in self.specs.items()
+                   if leaf in ("weight", "w_q", "w_qp"))
+
+
+class ShardedLinear(nn.Module):
+    """One rank's shard of a linear on a tp group (`plan`), holding the
+    leaves of the linear it replaces under their names ("weight" / "w_q" /
+    "w_qp", "scale" / "scale4", "bias"): the rank's slices where the
+    sharding rules split them, whole where they do not."""
+
+    def __init__(self, plan: LinearShard, tensors: dict, tp: TPGroup):
+        super().__init__()
+        self.plan, self.kind, self.tp = plan, plan.kind, tp
+        self._group_index = None
+        for name, t in tensors.items():
+            setattr(self, name, _frozen(t))
+
+    def _scale4(self):
+        """The int4 scales of this rank's groups."""
+        g = self.plan.scale_groups
+        if g is None:
+            return self.scale4
+        if g == list(range(g[0], g[0] + len(g))):
+            return self.scale4[:, g[0]:g[0] + len(g)]
+        if self._group_index is None or \
+                self._group_index.device != self.scale4.device:
+            self._group_index = torch.tensor(g, device=self.scale4.device)
+        return self.scale4[:, self._group_index]
+
+    def _product(self, x):
+        """The layer's product over its leaves, no bias."""
+        if self.kind == "linear":
+            return F.linear(x, self.weight)
+        if self.kind == "int8":
+            if act_int8_active():
+                x8, s_a = quantize_rows(x)
+                return int8_epilogue(int_mm(x8, self.w_q), s_a, self.scale,
+                                     x.dtype)
+            return int8_product(x, self.w_q, self.scale)
+        return int4_product(x, self.w_qp, self._scale4())
+
+    def _full(self, x):
+        """The unsharded layer's forward over its leaves."""
+        if self.kind == "linear":
+            return F.linear(x, self.weight, self.bias)
+        return self._product(x) + self.bias
+
+    def forward(self, x):
+        tp, plan = self.tp, self.plan
+        if plan.role == ROLE_ROW:
+            if not plan.split:
+                return self._full(tp.all_gather(x) if plan.local_input
+                                  else x)
+            if not plan.local_input:
+                x = take(x, -1, plan.in_ranges)
+            if self.kind == "int8" and act_int8_active():
+                x8, s_a = quantize_rows(x, tp)
+                acc = tp.all_reduce(int_mm(x8, self.w_q))
+                return int8_epilogue(acc, s_a, self.scale, x.dtype) + \
+                    self.bias
+            return tp.all_reduce(self._product(x)) + self.bias
+        if plan.split:
+            y = self._full(x)
+        else:
+            y = take(self._product(x), -1, plan.out_ranges) + self.bias
+        return tp.all_gather(y) if plan.role == ROLE_GATHER else y
+
+    def from_rows(self, x8, s_a, out_dtype):
+        """Column-parallel W8A8 over rows quantized once for several
+        projections (`project_rows`)."""
+        return int8_epilogue(int_mm(x8, self.w_q), s_a, self.scale,
+                             out_dtype) + self.bias
+
+
+def _is_int8(lin) -> bool:
+    return isinstance(lin, Int8Linear) or (
+        isinstance(lin, ShardedLinear) and lin.kind == "int8"
+        and lin.plan.role == ROLE_COLUMN)
 
 
 def project_rows(x, linears):
     """Several linears over one input (`row_projector`): under W8A8 with
     int8 weights x is quantized once and every projection reads that copy;
     otherwise each applies to x."""
-    if act_int8_active() and isinstance(linears[0], Int8Linear):
+    if act_int8_active() and _is_int8(linears[0]):
         x8, s_a = quantize_rows(x)
         return [lin.from_rows(x8, s_a, x.dtype) for lin in linears]
     return [lin(x) for lin in linears]

@@ -28,6 +28,10 @@ was an XLA rematerialisation fix with the same math, and its `_slice_out`
 halves are output columns of that one product; under W8A8 its input is
 quantized once, as JAX's `row_projector` does).  Any linear may be an
 `nn.Linear` or a quantized one (`ops.quant.quantize_params`).
+Under tensor parallelism (`parallel.sharding.shard_params`) each rank holds
+its heads (`Attention.heads`, `SingleBlock.heads / inner / mlp_hidden`
+count the rank's own), its `ShardedLinear`s and a cache of its heads
+(`init_cache(..., tp=)`); the attention kernels run unchanged on them.
 """
 
 from __future__ import annotations
@@ -248,11 +252,13 @@ class SingleBlock(nn.Module):
 # full model
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: MMDiTConfig, batch: int, s_kv_img: int, device):
+def init_cache(cfg: MMDiTConfig, batch: int, s_kv_img: int, device,
+               tp: int = 1):
     """Zeroed KV cache: {"dk", "dv"} (and {"sk", "sv"} with single blocks)
     of [L, B, H, S, dh], image rows only (txt rows re-embed every step).
     Quantized: int8 rows (S/2 packed rows under int4) and fp32 scale
-    leaves "dk_s" ... of [L, B, H, S] filled with 1e-12, as in JAX."""
+    leaves "dk_s" ... of [L, B, H, S] filled with 1e-12, as in JAX.  `tp`:
+    a tensor-parallel rank's cache holds its H / tp heads."""
     quant = cfg.cache_quant
     rows = s_kv_img
     if cfg.cache_int4:
@@ -266,11 +272,11 @@ def init_cache(cfg: MMDiTConfig, batch: int, s_kv_img: int, device):
     cache = {}
     for key, depth in depths.items():
         cache[key] = torch.zeros(
-            (depth, batch, cfg.heads, rows, cfg.head_dim),
+            (depth, batch, cfg.heads // tp, rows, cfg.head_dim),
             dtype=torch.int8 if quant else cfg.dtype, device=device)
         if quant:
             cache[key + "_s"] = torch.full(
-                (depth, batch, cfg.heads, s_kv_img), 1e-12,
+                (depth, batch, cfg.heads // tp, s_kv_img), 1e-12,
                 dtype=torch.float32, device=device)
     return cache
 
@@ -320,11 +326,14 @@ class MMDiT(nn.Module):
     """The backbone; parameter names mirror the JAX param pytree (the
     block stacks "double" / "single" become `double_blocks.<i>` /
     `single_blocks.<i>`, since `nn.Module.double` is a method; JAX's "w" is
-    `weight` transposed, "b" is `bias`, "in" is `in_`)."""
+    `weight` transposed, "b" is `bias`, "in" is `in_`).  `tp` and `mesh`
+    are set by `parallel.sharding.shard_params` (None: unsharded)."""
 
     def __init__(self, cfg: MMDiTConfig, device):
         super().__init__()
         self.cfg = cfg
+        self.tp = None      # layers.TPGroup of a sharded model
+        self.mesh = None
         h, dt = cfg.hidden, cfg.dtype
         self.x_embedder = make_linear(cfg.in_channels, h, device, dt)
         self.time_in = mlp_embed_module(cfg.time_embed_dim, h, device, dt)
@@ -346,6 +355,10 @@ class MMDiT(nn.Module):
             self.single_blocks = nn.ModuleList(SingleBlock(cfg, device)
                                         for _ in range(cfg.depth_single))
 
+    @property
+    def tp_size(self) -> int:
+        return 1 if self.tp is None else self.tp.size
+
     def forward(self, img, txt, t, rope_img, rope_txt, pooled=None,
                 guidance=None, *, mode: str = MODE_DENSE, cache=None,
                 sel_img_ids=None, txt_bias=None):
@@ -366,7 +379,8 @@ class MMDiT(nn.Module):
                  mode, cache, sel_img_ids, txt_bias):
         cfg, dt = self.cfg, self.cfg.dtype
         if mode == MODE_WRITE and cache is None:
-            cache = init_cache(cfg, img.shape[0], img.shape[1], img.device)
+            cache = init_cache(cfg, img.shape[0], img.shape[1], img.device,
+                               self.tp_size)
         x = self.x_embedder(img.to(dt))
         temb = mlp_embed(self.time_in,
                          timestep_embedding(t, cfg.time_embed_dim).to(dt))

@@ -88,6 +88,20 @@ PRESETS: dict[str, MMDiTConfig] = {
         mlp_ratio=2.0, in_channels=8, out_channels=8, dtype=torch.float32,
         txt_norm=True,
     ),
+    # sharding tests: head count (8) and all feature dims divisible by
+    # tp=4, so a (dp=2, tp=4) mesh splits every rule of parallel.sharding
+    "tiny-tp": MMDiTConfig(
+        hidden=128, heads=8, head_dim=16, depth_double=2, depth_single=2,
+        txt_in_dim=16, pooled_dim=8, axes_dims=(4, 6, 6), time_embed_dim=32,
+        mlp_ratio=2.0, in_channels=8, out_channels=8, dtype=torch.float32,
+    ),
+    # the Qwen topology under tp: joint double blocks only + txt_norm
+    "tiny-qwen-tp": MMDiTConfig(
+        hidden=128, heads=8, head_dim=16, depth_double=3, depth_single=0,
+        txt_in_dim=16, pooled_dim=0, axes_dims=(4, 6, 6), time_embed_dim=32,
+        mlp_ratio=2.0, in_channels=8, out_channels=8, dtype=torch.float32,
+        txt_norm=True,
+    ),
 }
 
 

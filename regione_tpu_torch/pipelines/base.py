@@ -16,7 +16,10 @@ Counterpart of `regione_tpu/pipelines/base.py`.  Latent path:
     batched denoise (`RegionESampler.sample_batch`).  Under CFG the group's
     rows are [pos_0 ... pos_{B-1}, neg_0 ... neg_{B-1}], the order
     `_expand_cfg` (cat([x, x])) and `_combine` (chunk(2)) assume, and the
-    cache rows follow it.
+    cache rows follow it.  On a (dp, tp) mesh (`parallel.sharding`) each
+    dp rank denoises its share of the requests on its tp group;
+  * a model sharded by `parallel.sharding.shard_params` carries its mesh,
+    which `edit_latents` hands to the sampler.
 Image path (`prepare_inputs`, `__call__`): the target resolution policy,
 the VAE encode of every reference, the prompt embeddings of both CFG halves
 (padded to one length, the padding masked by a -1e9 text bias), the initial
@@ -46,6 +49,7 @@ from regione_tpu_torch.models.layers import gather_rope, rope_table
 from regione_tpu_torch.models.mmdit import (MODE_DENSE, MODE_RAGS,
                                             MODE_WRITE, MMDiT, init_cache)
 from regione_tpu_torch.models.vae import pack_latents, unpack_latents
+from regione_tpu_torch.parallel.sharding import dp_all_gather
 
 
 def latent_grid_ids(grid_h: int, grid_w: int, axis0: int = 0) -> np.ndarray:
@@ -206,7 +210,8 @@ class EditPipelineBase:
             dev = self.device
 
             def make_cache():
-                return init_cache(self.cfg, batch_cache, s_kv, dev)
+                return init_cache(self.cfg, batch_cache, s_kv, dev,
+                                  self.model.tp_size)
 
             self._samplers[key] = RegionESampler(
                 plan, self.re, grid_h=grid_h, grid_w=grid_w,
@@ -231,7 +236,8 @@ class EditPipelineBase:
         if dense_only or not self._regione_enabled:
             return sampler.sample_dense(latents0, ctx), None
         return sampler.sample(latents0, ctx.cond_latent[:, :s_noise], ctx,
-                              forced_mask=forced_mask, timed=timed)
+                              forced_mask=forced_mask, timed=timed,
+                              mesh=self.model.mesh)
 
     @torch.inference_mode()
     def edit_latents_batch(self, latents_list, ctx_list, grid_h: int,
@@ -244,13 +250,20 @@ class EditPipelineBase:
         with equal shapes and rope tables; forced_masks: None or B masks
         [S].  Returns (B latents [1, S, C] fp32, B SampleStats).
 
-        `mesh` (the JAX package's request axis across chips) waits for the
-        ROADMAP queue-1 item `parallel/sharding`; it must be None."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "edit_latents_batch(mesh=...): spreading a group over cards "
-                "waits for the port of parallel/sharding (ROADMAP queue 1, "
-                "`parallel/sharding.py`)")
+        `mesh`: a (dp, tp) `DeviceMesh` (`parallel.sharding.make_mesh`;
+        every rank calls with the whole group).  The request axis goes over
+        "dp", as the JAX package's `P("dp")` places it: when dp divides B
+        each dp rank denoises its B / dp requests (their cache sets only) on
+        its tp group; otherwise every dp rank denoises the whole group.  The
+        weights are those of `self.model`, sharded over the same mesh's
+        "tp" by `shard_params` or whole.  The group shares one capacity
+        bucket, the largest count over all B.  Every rank returns all B
+        latents and stats."""
+        if None not in (mesh, self.model.mesh) and mesh is not self.model.mesh:
+            raise ValueError("edit_latents_batch: the model is sharded over "
+                             "another mesh")
+        if mesh is None:
+            mesh = self.model.mesh
         if not len(latents_list) == len(ctx_list) >= 1:
             raise ValueError(f"{len(latents_list)} latents for "
                              f"{len(ctx_list)} inputs")
@@ -267,6 +280,15 @@ class EditPipelineBase:
                     "tables (condition grid decomposition / tags) cannot "
                     "share a batch; group them by rope content first "
                     "(EditService.run_batched does)")
+        n_all = len(ctx_list)
+        dp = 1 if mesh is None else mesh.size(0)
+        split = dp > 1 and n_all % dp == 0
+        if split:
+            r, k = mesh.get_local_rank("dp"), n_all // dp
+            latents_list = latents_list[r * k:(r + 1) * k]
+            ctx_list = ctx_list[r * k:(r + 1) * k]
+            if forced_masks is not None:
+                forced_masks = forced_masks[r * k:(r + 1) * k]
 
         def stack(name):
             """The group's rows of a per-request field of Bc rows ([pos;
@@ -292,8 +314,14 @@ class EditPipelineBase:
         if forced_masks is not None:
             fm = torch.stack([torch.as_tensor(m) for m in forced_masks])
         out, stats = sampler.sample_batch(lat_b, cond[:, :s_noise], ctx_b,
-                                          forced_masks=fm)
-        return [out[i:i + 1] for i in range(group)], stats
+                                          forced_masks=fm, mesh=mesh)
+        if split:
+            out = dp_all_gather(mesh, out)
+            counts = dp_all_gather(mesh, torch.tensor(
+                [st.edited_tokens for st in stats], device=out.device))
+            stats = [dataclasses.replace(stats[0], edited_tokens=int(c))
+                     for c in counts.tolist()]
+        return [out[i:i + 1] for i in range(n_all)], stats
 
     # -- image-level API ------------------------------------------------------
 

@@ -179,7 +179,9 @@ class EditService:
                     max_batch: int = 4, mesh=None) -> list[EditResult]:
         """Group same-geometry requests and denoise each group of up to
         `max_batch` in one batched pass; results in request order.
-        `mesh` must be None (see `EditPipelineBase.edit_latents_batch`)."""
+        `mesh`: a (dp, tp) mesh, handed to `edit_latents_batch` (each dp
+        rank denoises its share of a group; every rank of the mesh calls
+        with all the requests and gets every result)."""
         prepped = [self._prepare(req) for req in requests]
         # the group key: token grid, text and condition lengths, and the
         # rope tables' content (equal-length condition sequences can

@@ -1,8 +1,11 @@
 """Device-memory planning: will the weights plus a group's KV caches fit?
 
-Counterpart of `regione_tpu/utils/memplan.py` at one device (tp 1), with
-the weights in their preset dtype or quantized (`int8`, with the JAX
-module's `quantize_mods`, `bits` and `int4_mods`).  The byte counts are
+Counterpart of `regione_tpu/utils/memplan.py`, per card, with the weights
+in their preset dtype or quantized (`int8`, with the JAX module's
+`quantize_mods`, `bits` and `int4_mods`), whole or tensor-parallel (`tp`:
+each leaf the rules of `parallel.sharding` split counts 1 / tp, and the
+KV cache 1 / tp; the sums are made per JAX leaf, the layer stacks summed
+first, as the JAX module counts).  The byte counts are
 exact and allocate nothing: the parameters are those of the port's `MMDiT`
 built on the `meta` device (quantized there by `ops.quant.quantize_params`),
 the cache those of `init_cache`'s tensors (the JAX module takes both from
@@ -14,7 +17,7 @@ cache set (`batch_cfg` rows: 2 under batch CFG) and its share of the
 activations.
 
 CLI:  python -m regione_tpu_torch.utils.memplan --preset step1x-edit \
-          --grid 64 --t-txt 512 --batch 3 --cache int8 [--int8 \
+          --grid 64 --t-txt 512 --batch 3 --cache int8 [--tp 4] [--int8 \
           [--quantize-mods] [--bits 4 [--int4-mods]]]
 """
 
@@ -40,11 +43,15 @@ class MemPlan:
     t_txt: int
     batch_cfg: int
     batch: int
-    param_bytes: int
-    cache_bytes: int
+    param_bytes: int            # per card
+    cache_bytes: int            # per card
     activation_bytes_est: int
     total_bytes: int
     params_total: int
+    tp: int = 1
+    sharded_leaves: int = 0     # JAX leaves (layer stacks) split over tp
+    # (JAX path, MiB) of the leaves over 64 MiB that stay whole at tp > 1
+    replicated_big_leaves: list = dataclasses.field(default_factory=list)
 
     def fits(self, hbm: int | str = "h100", reserve_frac: float = 0.08
              ) -> bool:
@@ -63,20 +70,17 @@ def plan(preset, grid: int = 64, t_txt: int = 512, batch_cfg: int = 2,
          cache: str = "bf16", batch: int = 1, tp: int = 1,
          int8: bool = False, quantize_mods: bool = False, bits: int = 8,
          int4_mods: bool = False) -> MemPlan:
-    """Bytes of the weights, of `batch` KV-cache sets and the activation
-    estimate for `preset` (a name or an `MMDiTConfig`) at a grid x grid
-    token grid (S_kv = 2 * grid^2 image rows) and t_txt text rows, on one
-    card.  `int8` quantizes the weights as `ops.quant.quantize_params(
+    """Bytes per card of the weights, of `batch` KV-cache sets and the
+    activation estimate for `preset` (a name or an `MMDiTConfig`) at a
+    grid x grid token grid (S_kv = 2 * grid^2 image rows) and t_txt text
+    rows.  `int8` quantizes the weights as `ops.quant.quantize_params(
     quantize_mods=, bits=, int4_mods=)` does (bits=4: int4); a packed int4
-    byte counts two parameters in `params_total`.  `tp` > 1 raises: it
-    waits for the ROADMAP queue-1 item `parallel/sharding.py`."""
+    byte counts two parameters in `params_total`.  `tp`: the tensor-
+    parallel degree (`parallel.sharding`)."""
     from regione_tpu_torch.models.mmdit import MMDiT, init_cache
     from regione_tpu_torch.models.presets import get_config
     from regione_tpu_torch.ops.quant import quantize_params
-    if tp != 1:
-        raise NotImplementedError(
-            "memplan.plan(tp > 1): tensor parallelism waits for the port of "
-            "parallel/sharding (ROADMAP queue 1, `parallel/sharding.py`)")
+    from regione_tpu_torch.parallel.sharding import jax_leaf, param_specs
     if cache not in CACHE_FORMATS:
         raise ValueError(f"cache format {cache!r}, not one of "
                          f"{CACHE_FORMATS}")
@@ -88,22 +92,33 @@ def plan(preset, grid: int = 64, t_txt: int = 512, batch_cfg: int = 2,
         quantize_params(model, quantize_mods=quantize_mods, bits=bits,
                         int4_mods=int4_mods)
     named = list(model.named_parameters())
-    params = [p for _, p in named]
-    param_bytes = sum(p.numel() * p.element_size() for p in params)
+    specs = param_specs(model)
+    leaves: dict[str, list] = {}     # JAX path -> [bytes, split over tp]
+    for n, p in named:
+        entry = leaves.setdefault(jax_leaf(n)[0], [0, "tp" in specs[n]])
+        entry[0] += p.numel() * p.element_size()
+    param_bytes = sum(nb // tp if split else nb
+                      for nb, split in leaves.values())
+    big = [(path, round(nb / 1024**2, 1))
+           for path, (nb, split) in leaves.items()
+           if not split and nb > 64 * 1024**2 and tp > 1]
     s_kv = 2 * grid * grid
     cache_cfg = dataclasses.replace(cfg, cache_int8=cache == "int8",
                                     cache_int4=cache == "int4")
     cache_bytes = sum(t.numel() * t.element_size() for t in init_cache(
-        cache_cfg, batch * batch_cfg, s_kv, meta).values())
+        cache_cfg, batch * batch_cfg, s_kv, meta).values()) // tp
     act = (batch * batch_cfg * (s_kv + t_txt)
-           * max(cfg.mlp_hidden, 3 * cfg.inner, cfg.hidden) * 2) * 2
+           * max(cfg.mlp_hidden // tp, 3 * cfg.inner // tp, cfg.hidden)
+           * 2) * 2
     return MemPlan(
         preset=name, cache=cache, grid=grid, t_txt=t_txt,
         batch_cfg=batch_cfg, batch=batch, param_bytes=int(param_bytes),
         cache_bytes=int(cache_bytes), activation_bytes_est=int(act),
         total_bytes=int(param_bytes + cache_bytes + act),
         params_total=int(sum(p.numel() * (2 if n.endswith(".w_qp") else 1)
-                             for n, p in named)))
+                             for n, p in named)),
+        tp=tp, sharded_leaves=sum(split for _, split in leaves.values()),
+        replicated_big_leaves=big)
 
 
 def main(argv=None):
@@ -117,6 +132,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=1,
                     help="images denoised together, each with its own cache")
     ap.add_argument("--cache", default="bf16", choices=CACHE_FORMATS)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree (bytes per card)")
     ap.add_argument("--hbm", default="h100", choices=sorted(HBM_BYTES))
     ap.add_argument("--int8", action="store_true",
                     help="quantized weights (int8, or int4 with --bits 4)")
@@ -126,7 +143,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     p = plan(args.preset, grid=args.grid, t_txt=args.t_txt,
              batch_cfg=args.batch_cfg, cache=args.cache, batch=args.batch,
-             int8=args.int8, quantize_mods=args.quantize_mods,
+             tp=args.tp, int8=args.int8, quantize_mods=args.quantize_mods,
              bits=args.bits, int4_mods=args.int4_mods)
     out = p.as_dict()
     out["fits_" + args.hbm] = p.fits(args.hbm)

@@ -10,7 +10,9 @@ optional "__metadata__" entry is skipped), then the raw little-endian
 bytes.  `SafetensorsFile` maps a file and reads each tensor with
 `torch.frombuffer` over the mapping, so a tensor costs no host copy until
 it is cast or moved: `weights.convert` streams diffusers checkpoints
-through it one tensor at a time.
+through it one tensor at a time, and a tensor-parallel rank reads only its
+slices (`mmdit_from_checkpoint(..., mesh=)`, `convert.load_converted(...,
+mesh=)`).
 """
 
 from __future__ import annotations
@@ -96,15 +98,25 @@ def load(path, device="cuda") -> dict:
     return {name: f.get(name).to(device) for name in f.keys()}
 
 
-def mmdit_from_checkpoint(path, cfg, device="cuda"):
+def mmdit_from_checkpoint(path, cfg, device="cuda", mesh=None):
     """An `MMDiT` of `cfg` holding the state dict `save` wrote to `path`,
     quantized linears included (told by their "w_q" / "w_qp" names): the
     model is built on the meta device and takes the loaded tensors as its
-    own, so nothing is allocated twice."""
+    own, so nothing is allocated twice.  `mesh`: a (dp, tp) mesh
+    (`parallel.sharding`): this rank's shard, each tensor cut to its
+    slices before it leaves the mapped file (`model.loaded_bytes`: the
+    bytes cut out)."""
     from regione_tpu_torch.models.mmdit import MMDiT
     from regione_tpu_torch.ops.quant import quantized_shells
-    state = load(path, device)
+    from regione_tpu_torch.parallel.sharding import load_shards
     model = MMDiT(cfg, torch.device("meta"))
+    if mesh is not None:
+        f = SafetensorsFile(path)
+        views = {name: f.get(name) for name in f.keys()}
+        quantized_shells(model, views)
+        return load_shards(model, mesh, lambda shard: {
+            n: shard(n, t).to(device) for n, t in views.items()})
+    state = load(path, device)
     quantized_shells(model, state)
     model.load_state_dict(state, strict=True, assign=True)
     return model.eval()

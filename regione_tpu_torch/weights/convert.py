@@ -13,7 +13,12 @@ name; the layout changes are:
 Tensors are streamed one at a time from the memory-mapped shards
 (`weights.checkpoint.SafetensorsFile`, any of BF16 / F16 / F32): each is
 cast to its parameter's dtype and moved to the device as it is converted,
-so no fp32 copy of the model is built on the host.  Every source tensor
+so no fp32 copy of the model is built on the host.  `load_converted(...,
+mesh=)` loads a tensor-parallel rank's shards straight from the mapped
+files: each tensor is cut to the rank's slices (`parallel.sharding.
+shard_tensor`; the fused linear1 and final_mod's swapped halves are kept
+as their parts, `RowCat`, so only the rank's rows are read) before it is
+cast and moved, and no whole tensor reaches the card.  Every source tensor
 must be consumed (`TrackingState`): a leftover means a wrong mapping or a
 checkpoint of another architecture.
 
@@ -32,6 +37,7 @@ from pathlib import Path
 
 import torch
 
+from regione_tpu_torch.parallel.sharding import RowCat, load_shards
 from regione_tpu_torch.weights.checkpoint import SafetensorsFile
 
 
@@ -76,32 +82,45 @@ def _load_torch_state(model_dir) -> dict:
 
 class _Converter:
     """Reads source tensors by name and writes the port's {name: tensor}
-    on `device` in `dtype`."""
+    on `device` in `dtype`.  `shard`: None, or (port name, whole tensor or
+    `RowCat`) -> this rank's part; source tensors then stay the mapped
+    file's views until `put` cuts them."""
 
-    def __init__(self, state, device, dtype):
+    def __init__(self, state, device, dtype, shard=None):
         self.state = state if isinstance(state, TrackingState) \
             else TrackingState(state)
-        self.device, self.dtype = device, dtype
+        self.device, self.dtype, self.shard = device, dtype, shard
         self.out: dict[str, torch.Tensor] = {}
 
     def get(self, key):
-        return self.state[key].to(device=self.device, dtype=self.dtype)
+        t = self.state[key]
+        if self.shard is not None:
+            return t
+        return t.to(device=self.device, dtype=self.dtype)
 
     def put(self, name, t):
         if name in self.out:
             raise ValueError(f"{name} produced twice")
+        if self.shard is not None:
+            t = self.shard(name, t).to(device=self.device, dtype=self.dtype)
+        elif isinstance(t, RowCat):
+            t = t.whole()
         self.out[name] = t
 
-    def lin(self, dst, src):
-        """A linear; a missing bias is zeros (the JAX converter's rule)."""
+    def weight_bias(self, src):
+        """A linear's weight and bias; a missing bias is zeros (the JAX
+        converter's rule)."""
         w = self.get(f"{src}.weight")
         if w.dim() == 4:                # old 1x1-conv style
             w = w[:, :, 0, 0]
-        self.put(f"{dst}.weight", w)
         b = f"{src}.bias"
-        self.put(f"{dst}.bias", self.get(b) if b in self.state else
-                 torch.zeros(w.shape[0], device=self.device,
-                             dtype=self.dtype))
+        return w, (self.get(b) if b in self.state else
+                   torch.zeros(w.shape[0], device=w.device, dtype=w.dtype))
+
+    def lin(self, dst, src):
+        w, b = self.weight_bias(src)
+        self.put(f"{dst}.weight", w)
+        self.put(f"{dst}.bias", b)
 
     def copy(self, dst, src):
         self.put(dst, self.get(src))
@@ -207,13 +226,13 @@ def normalize_qwen_keys(state: dict) -> dict:
     return out
 
 
-def convert_flux_transformer(state, cfg, device="cuda") -> dict:
+def convert_flux_transformer(state, cfg, device="cuda", shard=None) -> dict:
     """diffusers FluxTransformer2DModel / Step1X-Edit transformer tensors
     (FLUX names; `normalize_*_keys` first for the Step1X and Qwen namings)
     -> the port's `MMDiT` state dict on `device`, in `cfg.dtype` (the
     connector in its own config's dtype).  Every source tensor must be
-    consumed."""
-    c = _Converter(state, device, cfg.dtype)
+    consumed.  `shard`: a tensor-parallel rank's cut (`_Converter`)."""
+    c = _Converter(state, device, cfg.dtype, shard)
     c.lin("x_embedder", "x_embedder")
     c.lin("txt_in", "context_embedder")
     if cfg.txt_norm:
@@ -226,11 +245,9 @@ def convert_flux_transformer(state, cfg, device="cuda") -> dict:
     if cfg.guidance_embed:
         c.embed("guidance_in", "time_text_embed.guidance_embedder")
     # [scale, shift] -> [shift, scale]
-    c.lin("final_mod", "norm_out.linear")
-    for key in ("final_mod.weight", "final_mod.bias"):
-        t = c.out[key]
+    for leaf, t in zip(("weight", "bias"), c.weight_bias("norm_out.linear")):
         h = t.shape[0] // 2
-        c.out[key] = torch.cat([t[h:], t[:h]])
+        c.put(f"final_mod.{leaf}", RowCat([t[h:], t[:h]]))
 
     attn = {"img_attn": ("to_q", "to_k", "to_v", "to_out.0", "norm_q",
                          "norm_k"),
@@ -254,22 +271,18 @@ def convert_flux_transformer(state, cfg, device="cuda") -> dict:
     for i in range(cfg.depth_single):
         src, dst = f"single_transformer_blocks.{i}", f"single_blocks.{i}"
         c.lin(f"{dst}.mod", f"{src}.norm.linear")
-        parts = _Converter(c.state, device, cfg.dtype)
-        for s in ("attn.to_q", "attn.to_k", "attn.to_v", "proj_mlp"):
-            parts.lin(s, f"{src}.{s}")
-        for leaf in ("weight", "bias"):
-            c.put(f"{dst}.linear1.{leaf}", torch.cat(
-                [parts.out.pop(f"{s}.{leaf}") for s in
-                 ("attn.to_q", "attn.to_k", "attn.to_v", "proj_mlp")]))
+        parts = [c.weight_bias(f"{src}.{s}") for s in
+                 ("attn.to_q", "attn.to_k", "attn.to_v", "proj_mlp")]
+        for k, leaf in enumerate(("weight", "bias")):
+            c.put(f"{dst}.linear1.{leaf}", RowCat([p[k] for p in parts]))
         c.lin(f"{dst}.linear2", f"{src}.proj_out")
         c.copy(f"{dst}.norm_q.scale", f"{src}.attn.norm_q.weight")
         c.copy(f"{dst}.norm_k.scale", f"{src}.attn.norm_k.weight")
 
     if cfg.connector is not None:
-        conn = _Converter(c.state, device, cfg.connector.dtype)
+        conn = _Converter(c.state, device, cfg.connector.dtype, shard)
+        conn.out = c.out            # in the connector's dtype, into c's
         convert_connector(conn, cfg.connector, device)
-        for k, v in conn.out.items():
-            c.put(k, v)
     c.check_consumed("convert_flux_transformer",
                      "mapping incomplete or wrong preset for this checkpoint")
     return c.out
@@ -417,7 +430,7 @@ def _module_from_state(cls, cfg, state):
 
 
 def load_converted(model_path, cfg, backend: str | None = None,
-                   load_text_encoder: bool = True, device="cuda"):
+                   load_text_encoder: bool = True, device="cuda", mesh=None):
     """Load a diffusers-layout checkpoint directory:
       <model_path>/transformer/*.safetensors
       <model_path>/vae/*.safetensors (+ config.json)
@@ -428,7 +441,11 @@ def load_converted(model_path, cfg, backend: str | None = None,
     (`text_encoders.encoder_from_checkpoint`: chat template and prefix drop
     for the Qwen family, T5 + CLIP for FLUX); otherwise the generic
     `HFTextEncoder`; with no text_encoder/ (or load_text_encoder=False) the
-    mock encoder."""
+    mock encoder.
+
+    `mesh`: a (dp, tp) mesh (`parallel.sharding.make_mesh`): the MMDiT is
+    this rank's shard, read from the files slice by slice (its
+    `loaded_bytes`: the bytes read for it)."""
     from regione_tpu_torch.models.mmdit import MMDiT
     from regione_tpu_torch.models.text_encoders import (
         HFTextEncoder, MockTextEncoder, encoder_from_checkpoint)
@@ -441,8 +458,13 @@ def load_converted(model_path, cfg, backend: str | None = None,
         state = normalize_qwen_keys(state)
     if is_step1x_state(state):
         state = normalize_step1x_keys(state)
-    model = _module_from_state(MMDiT, cfg, convert_flux_transformer(
-        state, cfg, device))
+    if mesh is None:
+        model = _module_from_state(MMDiT, cfg, convert_flux_transformer(
+            state, cfg, device))
+    else:
+        model = load_shards(
+            MMDiT(cfg, torch.device("meta")), mesh,
+            lambda shard: convert_flux_transformer(state, cfg, device, shard))
     del state
 
     vae_state = _load_torch_state(root / "vae")

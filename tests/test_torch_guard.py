@@ -18,7 +18,10 @@
     are exactly the `extern "C"` entries of the sources;
   * the public builders of models and VAEs, the eval entry points (the
     local judges, the thinker's VLM, LPIPS, the pixel probe, the eval
-    CLIs' `--device`) default to the card, and with no card they raise.
+    CLIs' `--device`) default to the card, and with no card they raise;
+    `parallel.sharding.make_mesh` names the card by default;
+  * `make_mesh` keeps the caller's backend for its subgroups (no switch
+    to another one).
 """
 
 import argparse
@@ -54,7 +57,8 @@ new = {"regione_tpu_torch.models.vae", "regione_tpu_torch.models.vae_wan",
        "regione_tpu_torch.pipelines.flux_kontext",
        "regione_tpu_torch.cli.main", "regione_tpu_torch.pipelines.serve",
        "regione_tpu_torch.utils.telemetry", "regione_tpu_torch.utils.memplan",
-       "regione_tpu_torch.pipelines.thinker"} | {
+       "regione_tpu_torch.pipelines.thinker",
+       "regione_tpu_torch.parallel", "regione_tpu_torch.parallel.sharding"} | {
        "regione_tpu_torch.eval." + m for m in (
            "metrics", "merge", "run_metrics", "preprocess", "lpips_torch",
            "pixelprobe", "viescore", "run_viescore")}
@@ -250,6 +254,7 @@ def test_public_builders_default_to_the_card():
                                         run_metrics, run_viescore, viescore)
     from regione_tpu_torch.models.vae import AutoencoderKL
     from regione_tpu_torch.models.vae_wan import WanVAE
+    from regione_tpu_torch.parallel import sharding
     from regione_tpu_torch.pipelines import thinker
     from regione_tpu_torch.weights import from_jax
     for fn in (from_jax.convert_params, from_jax.mmdit_from_jax,
@@ -263,6 +268,8 @@ def test_public_builders_default_to_the_card():
                pixelprobe.pixel_psnr_vs_dense):
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn.__qualname__
+    assert inspect.signature(sharding.make_mesh).parameters[
+        "device_type"].default == "cuda"
     # the eval CLIs' --device
     for cli, argv in ((run_metrics, ["--folder1", "a", "--folder2", "b"]),
                       (run_viescore, ["--data_dir", "d"])):
@@ -295,3 +302,19 @@ def test_eval_on_a_missing_card_raises(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="needs a CUDA card"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mesh_keeps_the_callers_backend(tmp_path):
+    """The mesh's dp and tp groups run on the default group's backend
+    (gloo here), whatever device type the mesh names."""
+    import torch.distributed as dist
+
+    from regione_tpu_torch.parallel import sharding
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = sharding.make_mesh(device_type="cpu")
+        for dim in ("dp", "tp"):
+            assert dist.get_backend(mesh.get_group(dim)) == "gloo"
+    finally:
+        dist.destroy_process_group()

@@ -11,7 +11,8 @@ rope rows are its own.  Stats must be equal per image; latents agree to
 2e-4 (the tolerance of the JAX package's own batched-against-single check,
 tests/test_batch_sampling.py).  Then the port's batch against its own
 per-image edits at the group's pinned capacity (1e-5: the same fp32
-arithmetic, batched), the rope-table check and the `mesh` refusal.
+arithmetic, batched), the rope-table check and a `mesh` (a one-rank
+gloo mesh here; the sharded cases are tests/test_torch_parallel_mesh.py).
 """
 
 import dataclasses
@@ -169,10 +170,26 @@ def test_differing_rope_tables_refuse_to_share_a_batch():
                                  ctxs, GRID, GRID)
 
 
-def test_mesh_waits_for_the_sharding_port():
+def test_mesh_waits_for_the_sharding_port(tmp_path):
+    """A mesh is accepted now that parallel/sharding is ported: on a
+    one-rank (dp 1, tp 1) gloo mesh the group's edit equals the edit
+    without one, bit for bit."""
+    import torch.distributed as dist
+
+    from regione_tpu_torch.parallel.sharding import make_mesh
     _, tpipe = _pipes(False, "plain")
-    xs = _requests(1, n=1)
-    with pytest.raises(NotImplementedError, match="parallel/sharding"):
-        tpipe.edit_latents_batch([torch.from_numpy(xs[0]["lat0"])],
-                                 [_tctx(tpipe, xs[0])], GRID, GRID,
-                                 mesh=object())
+    xs = _requests(1, n=2)
+    lats = [torch.from_numpy(x["lat0"]) for x in xs]
+    want, wstats = tpipe.edit_latents_batch(
+        lats, [_tctx(tpipe, x) for x in xs], GRID, GRID)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(device_type="cpu")
+        got, stats = tpipe.edit_latents_batch(
+            lats, [_tctx(tpipe, x) for x in xs], GRID, GRID, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    assert stats == wstats
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -7,7 +7,9 @@
     bytes as the JAX package's `memplan.plan` at tp 1 (its `jax.eval_shape`
     allocates nothing; the port's `meta` tensors neither) for `tiny`,
     `step1x-edit` and `qwen-image-edit`, each cache format; a group of B
-    requests holds B cache sets; what is not ported yet raises.
+    requests holds B cache sets; tp > 1 gives the bytes per card
+    (tests/test_torch_parallel.py holds them against JAX's); an unknown
+    cache format raises.
 """
 
 import dataclasses
@@ -91,8 +93,12 @@ def test_plan_of_a_group_holds_one_cache_set_per_image():
 
 
 def test_plan_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="sharding"):
-        memplan.plan("tiny", tp=2)
+    """tp > 1 is ported (per card: the split leaves and the cache halve);
+    an unknown cache format still raises."""
+    one, two = memplan.plan("tiny", tp=1), memplan.plan("tiny", tp=2)
+    assert two.tp == 2 and two.cache_bytes == one.cache_bytes // 2
+    assert 0 < two.sharded_leaves and two.param_bytes < one.param_bytes
+    assert two.params_total == one.params_total
     with pytest.raises(ValueError, match="cache format"):
         memplan.plan("tiny", cache="fp8")
 
