@@ -129,6 +129,17 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
      statistics, latent PSNR >= 40 dB on every rank, each rank's weight
      bytes equal to memplan's, its launches of K1, K2 / K2q and K3.  The
      seconds are gloo's through the host, not tensor-parallel speed.
+  12. (after 10a, once phase 5's weights have left the card) the measuring
+     entry points, `regione_tpu_torch.bench` and `graft_entry`, on the
+     headline workload: `headline.run`'s (bench.py's) step1x-edit:dev at
+     grid 64, t_txt 128, best of 3, its JSON row on a line of its own
+     (bench.py's keys, a partial partition with the plan's reuse count,
+     latent and pixel PSNR >= 30 dB, each adaptive RegionE edit K1 > 0, K2
+     > 0, K2q 0, K3 once), its dense and RegionE profiles, K1 and K2 at
+     its shapes; then `profile_steps` at those shapes, `serve_batch` (B 2:
+     K2q > 0, batched against single >= 40 dB), `fullsize --preset
+     step1x-edit` at full width on a 32 x 32 grid, and one
+     `graft_entry.entry()` step.
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is the kernels' JSON record, the last line the
 device record.  Imports no JAX and nothing of the JAX package: the port
@@ -145,6 +156,9 @@ import sys
 import time
 
 import numpy as np
+
+from regione_tpu_torch.bench.common import (psnr, read_counts, reset_counts,
+                                            structured_condition, timed_edit)
 
 T0 = time.perf_counter()
 DEVICE = "cuda"
@@ -645,35 +659,6 @@ T_TXT = 128
 PSNR_MIN = 30.0
 
 
-def psnr(a, b) -> float:
-    """Latent PSNR of b against a, peak = a's range (as bench.py)."""
-    a = np.asarray(a, np.float64)
-    b = np.asarray(b, np.float64)
-    mse = float(np.mean((a - b) ** 2))
-    if mse == 0:
-        return float("inf")
-    peak = float(max(a.max() - a.min(), 1e-9))
-    return 10.0 * np.log10(peak * peak / mse)
-
-
-def reset_counts():
-    from regione_tpu_torch.ops import flash_attention as fa
-    from regione_tpu_torch.ops import partition_kernel as pk
-    fa.reset_launches()
-    pk.fused_partition.launches = 0
-
-
-def read_counts():
-    from regione_tpu_torch.ops import flash_attention as fa
-    from regione_tpu_torch.ops import partition_kernel as pk
-    return {"attention": fa.attention.launches,
-            "attention_long": fa.attention.long_launches,
-            "attention_rows2": fa.attention_rows2.launches,
-            "attention_rows2_quant": fa.attention_rows2_quant.launches,
-            "attention_quant": fa.attention_quant.launches,
-            "fused_partition": pk.fused_partition.launches}
-
-
 def release():
     """Free what the last phase left on the card."""
     import torch
@@ -838,66 +823,14 @@ def check_sdpa_cached_alone():
     return counts
 
 
-def structured_condition(pipe, sampler, re, grid, txt, pooled, rope, lat0,
-                         r, label, span=7):
-    """bench.py's probe: the x0 estimate at the partition step with a block
-    replaced by noise, so the adaptive partition is partial with random
-    weights (the block, grid/16 to span * grid/16 on each axis, dilated
-    5x5: ~20% of the grid at span 7).  Returns the condition latent (numpy
-    [1, S, C])."""
-    import torch
-    from regione_tpu_torch.core.partition import select_edited_mask
-    s, c_in = grid * grid, pipe.cfg.in_channels
-    warm = sampler.plan[: re.warmup_step - 1]
-    part = sampler.plan[re.warmup_step - 1]
-
-    @torch.inference_mode()
-    def x0_probe(ctx):
-        """x0 estimate at the partition step (the sampler's math)."""
-        ctx = dataclasses.replace(ctx, s_noise=s)
-        lat = sampler._dense_steps(lat0.float(), warm, ctx)
-        v, _ = pipe.dense_forward(lat, part.sigma, None, ctx, False)
-        return lat + part.dt_final * v
-
-    b0, b1 = grid // 16, grid * span // 16
-    block = np.zeros((grid, grid), bool)
-    block[b0:b1, b0:b1] = True
-    target = block.reshape(-1)
-    noise_block = r.standard_normal((int(target.sum()), c_in))
-    cond = r.standard_normal((1, s, c_in))
-    for it in range(3):
-        t = time.perf_counter()
-        x0 = x0_probe(_ctx(txt, pooled, cond, rope))
-        cond = x0.cpu().numpy().copy()
-        cond[0, target] = noise_block
-        mask = select_edited_mask(
-            x0, torch.as_tensor(cond, dtype=torch.float32, device=x0.device),
-            re.threshold, grid_h=grid, grid_w=grid,
-            erosion_dilation=re.erosion_dilation)
-        frac = float(mask.float().mean())
-        log(f"{label}: probe {it}: edited fraction {frac:.3f} "
-            f"({time.perf_counter() - t:.1f}s)")
-        if 0.18 <= frac <= 0.35 and it >= 1:
-            break
-    return cond
-
-
-def timed_edit(pipe, lat0, ctx, grid, dense_only=False):
-    """One edit, host wall time ended by a synchronize, launch counts set to
-    0 just before and read just after, peak device memory of the edit.
-    Returns (latents numpy, stats, seconds, counts, peak GiB)."""
-    import torch
-    reset_counts()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    out, stats = pipe.edit_latents(lat0, ctx, grid, grid,
-                                   dense_only=dense_only)
-    torch.cuda.synchronize()
-    sec = time.perf_counter() - t
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    return out.cpu().numpy(), stats, sec, counts, peak
+def probe_condition(pipe, sampler, txt, pooled, rope, lat0, r, label,
+                    span=7):
+    """`bench.common.structured_condition` for a request of these
+    embeddings and rope tables: the condition latent (numpy [1, S, C])
+    under which the partition is partial (span 7: ~20% of the grid)."""
+    return structured_condition(
+        pipe, sampler, lambda c: _ctx(txt, pooled, c, rope), lat0, r,
+        span=span, label=label, log=log)[0]
 
 
 def check_edit(label, out, stats, counts, dense, shape, cache):
@@ -973,8 +906,8 @@ def phase_slice(grid):
     for req, seed in enumerate((110, 111)):
         label = f"step1x request {req}"
         r, lat0 = _request(cfg, seed, grid)
-        cond = structured_condition(pipe, sampler, re, grid, txt, pooled,
-                                    rope, lat0, r, label)
+        cond = probe_condition(pipe, sampler, txt, pooled, rope, lat0, r,
+                               label)
         ctx = _ctx(txt, pooled, cond, rope)
         dense, _, dense_s, dense_counts, _ = timed_edit(pipe, lat0, ctx, grid,
                                                         dense_only=True)
@@ -1027,8 +960,7 @@ def phase_large_grid(grid=160):
     sampler = pipe.sampler_for(grid, grid, t_txt, 2)
     label = f"step1x small topology, grid {grid}"
     r, lat0 = _request(cfg, 161, grid)
-    cond = structured_condition(pipe, sampler, re, grid, txt, None, rope,
-                                lat0, r, label)
+    cond = probe_condition(pipe, sampler, txt, None, rope, lat0, r, label)
     ctx = _ctx(txt, None, cond, rope)
     dense, _, dense_s, dense_counts, _ = timed_edit(pipe, lat0, ctx, grid,
                                                     dense_only=True)
@@ -1084,8 +1016,7 @@ def phase_qwen_slice(grid, preset="qwen-image-edit"):
     shape = (1, grid * grid, cfg.out_channels)
     label = f"qwen grid {grid}"
     r, lat0 = _request(cfg, 121, grid)
-    cond = structured_condition(pipe, sampler, re, grid, txt, None, rope,
-                                lat0, r, label)
+    cond = probe_condition(pipe, sampler, txt, None, rope, lat0, r, label)
     ctx = _ctx(txt, None, cond, rope)
     dense, _, dense_s, dense_counts, dense_peak = timed_edit(
         pipe, lat0, ctx, grid, dense_only=True)
@@ -1229,9 +1160,8 @@ def phase_serve_latent(pipe, ctx0, grid, seeds=(110, 111, 112)):
     for k, seed in enumerate(seeds):
         label = f"serve (a) request {seed}"
         r, lat0 = _request(cfg, seed, grid)
-        cond = structured_condition(pipe, sampler, re, grid, ctx0.txt,
-                                    ctx0.pooled, rope, lat0, r, label,
-                                    span=5 + 2 * k)
+        cond = probe_condition(pipe, sampler, ctx0.txt, ctx0.pooled, rope,
+                               lat0, r, label, span=5 + 2 * k)
         ctx = _ctx(ctx0.txt, ctx0.pooled, cond, rope)
         out, stats, sec, counts, peak = timed_edit(pipe, lat0, ctx, grid)
         log(f"{label}: edit_latents {sec:.3f} s, edited_tokens "
@@ -2807,6 +2737,122 @@ def phase_pixelprobe(probes):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the measuring entry points on the headline workload
+# ---------------------------------------------------------------------------
+
+# bench.py's row, key for key (the pixel keys are its `pixel_psnr_vs_dense`
+# dict's)
+HEADLINE_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "dense_s", "regione_s",
+    "psnr_latent_vs_dense", "psnr_pixel_vs_dense", "ssim_pixel_vs_dense",
+    "pixel_decoder", "edited_tokens", "capacity", "edited_frac", "seq_len",
+    "reuse_steps", "forced_mask_s", "forced_mask_speedup",
+    "forced_edited_tokens", "params", "model", "device")
+
+
+def phase_bench():
+    """12: `regione_tpu_torch.bench` and `graft_entry` on the card.  The
+    headline (`headline.run`'s workload: step1x-edit:dev, grid 64, t_txt
+    128, best of 3) with the launch counts of each adaptive RegionE edit
+    set to 0 just before it and read just after: its row on a line of its
+    own, bench.py's keys, a partial partition with RAGS steps and the
+    plan's reuse count, latent and pixel PSNR >= 30 dB, each adaptive RegionE edit K1 > 0, K2 > 0, K2q 0 and K3
+    once; the profiles of its dense and RegionE edits; K1 and K2 at its
+    shapes.  Then `profile_steps` at the same shapes, `serve_batch` (B 2,
+    one run: K2q > 0, batched against single >= SERVE_PSNR_MIN), `fullsize
+    --preset step1x-edit` at full width with the grid cut to 32, one run,
+    and one `graft_entry.entry()` step.  Returns (the launch counts of the
+    headline's last adaptive RegionE edit, K1's and K2's records)."""
+    import torch
+    from regione_tpu_torch import graft_entry
+    from regione_tpu_torch.bench import (fullsize, headline, profile_steps,
+                                         serve_batch)
+    from regione_tpu_torch.ops._build import BUILD_DIR
+    problems = []
+    g = headline.GRID
+    w = headline.prepare(device=DEVICE)
+    row, stats, launches = headline.measure(w)
+    print(json.dumps(row), flush=True)
+    plan = profile_steps.plan_counts(w.pipe.sampler_for(
+        g, g, headline.T_TXT, 2).plan)
+    log(f"12 headline: plan {plan}, stats {stats}; launches of each "
+        f"adaptive RegionE edit {launches}")
+    if tuple(row) != HEADLINE_KEYS:
+        problems.append(f"headline keys {list(row)}")
+    if not (0 < row["edited_tokens"] < g * g and stats.rags_steps > 0
+            and row["reuse_steps"] == plan["reuse"]):
+        problems.append(f"headline plan {stats} against {plan}")
+    if not (row["psnr_latent_vs_dense"] >= PSNR_MIN
+            and row.get("psnr_pixel_vs_dense", 0) >= PSNR_MIN):
+        problems.append("headline PSNR")
+    if any(not (c["attention"] > 0 and c["attention_rows2"] > 0
+                and c["attention_rows2_quant"] == 0
+                and c["fused_partition"] == 1) for c in launches):
+        problems.append(f"headline launches {launches}")
+    phase_profile("12 headline", w.pipe, w.ctx, w.lat0, g)
+    rng = np.random.default_rng(12)
+    s_kv = 2 * g * g
+    checks = {"headline_attention": check_attention(
+        rng, 2, w.pipe.cfg.heads, headline.T_TXT + s_kv,
+        headline.T_TXT + s_kv, False, iters=5),
+        "headline_rows2": check_rows2(
+            rng, 2, w.pipe.cfg.heads, headline.T_TXT, stats.capacity, s_kv,
+            iters=10)}
+    if not all(r["ok"] for r in checks.values()):
+        problems.append("a kernel disagrees at the headline's shapes")
+    del w
+    release()
+
+    t = time.perf_counter()
+    prof = profile_steps.run(device=DEVICE, runs=3)
+    log(f"12 profile_steps ({time.perf_counter() - t:.1f}s): "
+        f"{json.dumps(prof)}")
+    if prof["plan_counts"] != plan:
+        problems.append(f"profile_steps plan {prof['plan_counts']}")
+    release()
+
+    t = time.perf_counter()
+    srow, detail = serve_batch.run(batch=2, grid=g, runs=1, device=DEVICE)
+    p = psnr(detail["single"], detail["batched"]) if detail else float("nan")
+    log(f"12 serve_batch ({time.perf_counter() - t:.1f}s): "
+        f"{json.dumps(srow)}; batched against single {p:.2f} dB (min "
+        f"{SERVE_PSNR_MIN}), max_abs_err_vs_single "
+        f"{srow.get('max_abs_err_vs_single')}, group launches "
+        f"{detail and detail['launches']}")
+    if detail is None or not p >= SERVE_PSNR_MIN or \
+            detail["launches"]["attention_rows2_quant"] <= 0:
+        problems.append("serve_batch")
+    release()
+
+    t = time.perf_counter()
+    frow = fullsize.run(fullsize.parse_args(
+        ["--preset", "step1x-edit", "--grid", "32", "--runs", "1",
+         "--device", DEVICE, "--out",
+         str(BUILD_DIR.parent / "bench" / "FULLSIZE_GRID32.json")]))
+    log(f"12 fullsize ({time.perf_counter() - t:.1f}s): {json.dumps(frow)}")
+    if not (frow["psnr_latent_vs_dense"] >= PSNR_MIN
+            and frow.get("psnr_pixel_vs_dense", 0) >= PSNR_MIN
+            and frow["edited_tokens"] == 32 * 32 // 4):
+        problems.append("fullsize")
+    release()
+
+    step_fn, args = graft_entry.entry(device=DEVICE)
+    out = step_fn(*args)
+    torch.cuda.synchronize()
+    ok = tuple(out.shape) == tuple(args[0].shape) and \
+        bool(torch.isfinite(out).all())
+    log(f"12 graft_entry.entry(): one dense step {tuple(out.shape)} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        problems.append("entry()")
+    del step_fn, args, out
+    release()
+    if problems:
+        fail("12: " + "; ".join(problems))
+    return launches[-1], checks
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the sharded port (tensor and data parallelism)
 # ---------------------------------------------------------------------------
 
@@ -3027,8 +3073,8 @@ def phase_sharded(qwen_grid=64, step1x_grid=32):
     txt = torch.from_numpy(rng.standard_normal(
         (2, T_TXT, qcfg.txt_in_dim), np.float32)).to(DEVICE, qcfg.dtype)
     r, lat0 = _request(qcfg, 132, g)
-    cond = structured_condition(pipe, pipe.sampler_for(g, g, T_TXT, 2), qre,
-                                g, txt, None, rope, lat0, r, "11a qwen")
+    cond = probe_condition(pipe, pipe.sampler_for(g, g, T_TXT, 2), txt, None,
+                           rope, lat0, r, "11a qwen")
     ctx = _ctx(txt, None, cond, rope)
     refs = {"qwen_dense": timed_edit(pipe, lat0, ctx, g, dense_only=True),
             "qwen": timed_edit(pipe, lat0, ctx, g)}
@@ -3055,9 +3101,8 @@ def phase_sharded(qwen_grid=64, step1x_grid=32):
     lats, ctxs, sx = [], [], []
     for k, seed in enumerate((142, 143)):
         r, l0 = _request(scfg, seed, g)
-        c = structured_condition(spipe, sampler, spipe.re, g, stxt, None,
-                                 rope, l0, r, f"11b step1x request {k}",
-                                 span=5 + 4 * k)
+        c = probe_condition(spipe, sampler, stxt, None, rope, l0, r,
+                            f"11b step1x request {k}", span=5 + 4 * k)
         lats.append(l0)
         ctxs.append(_ctx(stxt, None, c, rope))
         sx.append({"lat0": l0.cpu(), "txt": stxt.cpu(), "cond": c})
@@ -3216,6 +3261,12 @@ KERNELS = {
     "attention_quant_int4": ("K6 attention_quant (int4)", SRC,
                              f"{JAX_FA}:133", "quant_int4",
                              "attention_quant"),
+    "headline_attention": ("K1 attention, the headline (step1x-edit:dev, "
+                           "grid 64): launches per RegionE edit", SRC,
+                           f"{JAX_FA}:69", "headline_edit", "attention"),
+    "headline_rows2": ("K2 attention_rows2 (bf16 cache), the headline: "
+                       "launches per RegionE edit", SRC, f"{JAX_FA}:357",
+                       "headline_edit", "attention_rows2"),
 }
 RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "library")
@@ -3261,6 +3312,11 @@ def main():
         f"{time.perf_counter() - t:.1f}s")
     del pipe, ctx, lat0         # 24.6 GB of Step1X weights leave the card
     release()
+    t = time.perf_counter()
+    paths["headline_edit"], bench_checks = phase_bench()
+    checks.update(bench_checks)
+    log(f"phase 12 (the measuring entry points, the headline workload) done "
+        f"in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     qwen, model, qwen_checks, qwen_request, probe5b = phase_qwen_slice(
         qwen_grid)

@@ -158,20 +158,9 @@ def build_pipeline(args):
     from regione_tpu_torch.models.presets import get_config
     from regione_tpu_torch.models.text_encoders import MockTextEncoder
     from regione_tpu_torch.models.vae import VAEConfig
-    from regione_tpu_torch.pipelines.flux_kontext import FluxKontextPipeline
-    from regione_tpu_torch.pipelines.qwen_image_edit import (
-        QwenImageEditPipeline, QwenImageEditPlusPipeline)
-    from regione_tpu_torch.pipelines.step1x_edit import (
-        Step1XEditPipeline, Step1XEditV1P2Pipeline)
+    from regione_tpu_torch.pipelines import PIPELINES
     from regione_tpu_torch.weights.from_jax import init_params, init_vae_params
 
-    classes = {
-        "step1x-edit": Step1XEditPipeline,
-        "step1x-edit-v1p2": Step1XEditV1P2Pipeline,
-        "flux-kontext": FluxKontextPipeline,
-        "qwen-image-edit": QwenImageEditPipeline,
-        "qwen-image-edit-plus": QwenImageEditPlusPipeline,
-    }
     dev = resolve_device(getattr(args, "device", None))
     backend = args.backend
     preset = args.preset or (backend + (":dev" if args.dev else ""))
@@ -249,7 +238,7 @@ def build_pipeline(args):
     if gs is not None:
         kw["guidance_scale" if backend == "flux-kontext"
            else "true_cfg_scale"] = gs
-    pipe = classes[backend](model, re, **kw)
+    pipe = PIPELINES[backend](model, re, **kw)
     pipe.attach_vae(vae)
     pipe.attach_text_encoder(encoder)
     pipe._regione_enabled = args.use_regione
