@@ -140,6 +140,26 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
      K2q > 0, batched against single >= 40 dB), `fullsize --preset
      step1x-edit` at full width on a 32 x 32 grid, and one
      `graft_entry.entry()` step.
+  13. (right after 12) the prompt encoder's placement and the JAX
+     package's last scripts on the port:
+     13a. `memplan.choose_placement` for Qwen / Plus / FLUX / Step1X with
+         their published fp32 prompt encoders (meta-device builds) on this
+         card (Qwen and Plus must offload), then the synthetic Qwen2.5-VL
+         offloaded and resident against the fp32 CPU encoder;
+     13b. `bench.exec_full_qwen60` at full width (60 blocks, 20.4 B int8
+         weights, int8 cache) at grid 64, t_txt 512, one rank: its row,
+         plan statistics, init seconds, K1, K2q and K3 launched; then K1
+         and K2q at its per-rank shapes under tp 4 (6 heads) and K1 and K2
+         at Step1X's under tp 2 (12 heads, grid 32), each against its
+         plain version with its bound and cuDNN's time;
+     13c. `bench.profile_rags` at its defaults and with `--cache-int8
+         --scan-only`;
+     13d. `bench.fidelity_int8` at its defaults (the formats on the card,
+         the fp32 master on the CPU);
+     13e. `scripts/torch_run_minibench.sh --dev`: the CLI's evaluation
+         runs, `run_metrics`, `merge` and `run_viescore` on the card, in
+         processes of their own started beside 13d (whose fp32 master
+         holds the CPU while the card idles).
 Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is the kernels' JSON record, the last line the
 device record.  Imports no JAX and nothing of the JAX package: the port
@@ -2853,6 +2873,175 @@ def phase_bench():
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the prompt encoder's placement and the JAX package's last scripts
+# ---------------------------------------------------------------------------
+
+PLACEMENT_PRESETS = ("qwen-image-edit", "qwen-image-edit-plus",
+                     "flux-kontext", "step1x-edit")
+
+
+def phase_encoder_placement(te):
+    """13a: `memplan.choose_placement` with each family's published prompt
+    encoder (built on the meta device) on this card at grid 64, t_txt 512:
+    Qwen / Plus must not keep their fp32 Qwen2.5-VL-7B on the card (it
+    does not fit beside the bf16 weights and cache); then the synthetic
+    Qwen2.5-VL (`te`, phase 10a's tiny_vl) through `QwenVLPromptEncoder`
+    offloaded and resident on the card, each against the fp32 CPU encoder
+    (embeddings within ENCODER_BOUND of their scale, masks equal); the
+    offloaded one holds no tensor on the card after its encode."""
+    import torch
+    from regione_tpu_torch.models.presets import get_config
+    from regione_tpu_torch.models.text_encoders import (
+        QWEN_EDIT_TEMPLATE, QwenVLPromptEncoder)
+    from regione_tpu_torch.utils import memplan
+    problems = []
+    hbm = torch.cuda.get_device_properties(0).total_memory
+    for preset in PLACEMENT_PRESETS:
+        choice, p = memplan.choose_placement(
+            get_config(preset), memplan.ENCODER_OF[preset], hbm,
+            batch_cfg=1 if preset == "flux-kontext" else 2)
+        d = p.as_dict()
+        log(f"13a memplan {preset} + {p.encoder} (fp32) at grid 64, t_txt "
+            f"512: weights {d['param_bytes_gib']} + encoder "
+            f"{d['encoder_bytes_gib']} + cache {d['cache_bytes_gib']} + "
+            f"activations {d['activation_bytes_est_gib']} = "
+            f"{d['total_bytes_gib']} GiB on a {hbm / 2**30:.2f} GiB card: "
+            f"placement {choice}")
+        if preset.startswith("qwen") and choice != "offload":
+            problems.append(f"{preset}: placement {choice}")
+    image = structured_image(23, 300, 240)
+    ref = QwenVLPromptEncoder(te, template=QWEN_EDIT_TEMPLATE, device="cpu")
+    want, _, want_mask = ref.encode(PROMPT, image=[image])
+    del ref
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    for placement in ("offload", "card"):
+        enc = QwenVLPromptEncoder(te, template=QWEN_EDIT_TEMPLATE,
+                                  device=DEVICE, placement=placement)
+        with enc.on_device():
+            with enc.on_device():       # re-entrant: one copy for both
+                got, _, mask = enc.encode(PROMPT, image=[image])
+                on_card = {t.device.type for t in enc.model.parameters()}
+        after = {t.device.type for t in enc.model.parameters()}
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        log(f"13a tiny_vl {placement}: on the card during the encode "
+            f"{on_card}, after it {after}, host -> card copy "
+            f"{enc.copy_s:.4f} s; embeddings {got.shape} max error "
+            f"{err:.2e} of their scale against the fp32 CPU encoder (bound "
+            f"{ENCODER_BOUND:.0e}), masks "
+            f"{'equal' if np.array_equal(mask, want_mask) else 'DIFFERENT'}")
+        if not (err <= ENCODER_BOUND and np.array_equal(mask, want_mask)
+                and on_card == {"cuda"}
+                and after == ({"cpu"} if placement == "offload"
+                              else {"cuda"})):
+            problems.append(f"tiny_vl {placement}")
+        del enc
+    torch.backends.cudnn.allow_tf32 = tf32
+    release()
+    if problems:
+        fail("13a: " + "; ".join(problems))
+
+
+def phase_ported_scripts(te):
+    """13: the encoder's placement (13a), then the ports of the JAX
+    package's last scripts on the card: `exec_full_qwen60` at full width
+    (60 blocks, int8 weights and cache) at grid 64, t_txt 512, tp 1, one
+    run (13b; plan statistics, init seconds, launches K1 > 0, K2q > 0, K2
+    0, K3 once); K1 and K2q at its per-rank shapes under tp 4 (6 of 24
+    heads, 13b's capacity: a tp 4 rank launches each as often as 13b does,
+    PERF.md section 6) and K1 and K2 at Step1X's under tp 2 (12 heads,
+    phase 11b's grid 32); `profile_rags` at its defaults and with
+    `--cache-int8 --scan-only` (13c); `fidelity_int8` at its defaults
+    (13d); the `torch_run_minibench.sh --dev` chain on the card (13e), in
+    its own processes while 13d's fp32 master holds the CPU and leaves the
+    card idle.  Returns (13b's launch counts, the kernels' records)."""
+    import os
+    import signal
+    from regione_tpu_torch.bench import (exec_full_qwen60, fidelity_int8,
+                                         profile_rags)
+    from regione_tpu_torch.ops._build import BUILD_DIR
+    problems = []
+    t = time.perf_counter()
+    phase_encoder_placement(te)
+    log(f"13a done in {time.perf_counter() - t:.1f}s")
+
+    t = time.perf_counter()
+    row = exec_full_qwen60.main(["--grid", "64", "--t-txt", "512", "--runs",
+                                 "1", "--device", DEVICE])
+    rank = row["ranks"][0]
+    log(f"13b exec_full_qwen60 ({time.perf_counter() - t:.1f}s, init "
+        f"{row['init_s']} s): plan dense {row['dense_steps']} rags "
+        f"{row['rags_steps']} reuse {row['reuse_steps']}, edited "
+        f"{row['edited_tokens']}/{row['seq_len']}, capacity "
+        f"{row['capacity']}; peak {rank['peak_gib']} GiB, memplan "
+        f"{rank['memplan_gib']} GiB; launches {rank['launches']}")
+    c = rank["launches"]
+    if not (row["blocks"] == 60 and row["finite_output"]
+            and c["attention"] > 0 and c["attention_rows2_quant"] > 0
+            and c["attention_rows2"] == 0 and c["fused_partition"] == 1):
+        problems.append(f"13b exec_full_qwen60 {row}")
+    release()
+    rng = np.random.default_rng(13)
+    s_kv = 2 * 64 * 64
+    checks = {
+        "tp4_attention": check_attention(rng, 2, 6, 512 + s_kv, 512 + s_kv,
+                                         False, iters=5),
+        "tp4_rows2_int8": check_rows2(rng, 2, 6, 512, row["capacity"], s_kv,
+                                      iters=10, bits=8),
+        "tp2_attention": check_attention(rng, 2, 12, T_TXT + 2 * 32 * 32,
+                                         T_TXT + 2 * 32 * 32, False,
+                                         iters=10),
+        "tp2_rows2": check_rows2(rng, 2, 12, T_TXT, 384, 2 * 32 * 32,
+                                 iters=10)}
+    if not all(r["ok"] for r in checks.values()):
+        problems.append("a kernel disagrees at the sharded shapes")
+    release()
+
+    for argv in ([], ["--cache-int8", "--scan-only"]):
+        t = time.perf_counter()
+        prow = profile_rags.main(argv + ["--runs", "3", "--device", DEVICE])
+        log(f"13c profile_rags {' '.join(argv) or '(defaults)'} "
+            f"({time.perf_counter() - t:.1f}s): {json.dumps(prow)}")
+        if not all(v > 0 for k, v in prow.items() if k.endswith(
+                ("_ms", "_x24", "_x48"))):
+            problems.append(f"13c profile_rags {argv}")
+        release()
+
+    t = t13e = time.perf_counter()
+    out = BUILD_DIR.parent / "minibench"
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out.parent / "minibench.log", "w+") as sink:
+        minibench = subprocess.Popen(
+            ["bash", "scripts/torch_run_minibench.sh", str(out), "--dev"],
+            stdout=sink, stderr=subprocess.STDOUT, start_new_session=True,
+            env=dict(os.environ, PYTHON=sys.executable))
+        try:
+            frow = fidelity_int8.main(["--device", DEVICE])
+            log(f"13d fidelity_int8 ({time.perf_counter() - t:.1f}s, beside "
+                f"13e): {json.dumps(frow)}")
+            snr = frow["trajectory_snr_db_vs_fp32"]
+            if not (snr["bf16"] >= snr["int8_weight_only"]
+                    > snr["int4_weight_only"] > 0):
+                problems.append(f"13d fidelity_int8 {snr}")
+            release()
+            rc = minibench.wait(timeout=300)
+        finally:
+            if minibench.poll() is None:
+                os.killpg(minibench.pid, signal.SIGKILL)
+                minibench.wait()
+        sink.seek(0)
+        tail = sink.read().strip().splitlines()[-6:]
+    log(f"13e torch_run_minibench.sh --dev ({time.perf_counter() - t13e:.1f}"
+        f"s from its start beside 13d, rc {rc}): {' | '.join(tail)}")
+    metric = sorted(out.glob("regione/*/metric.csv"))
+    if rc != 0 or not metric:
+        problems.append(f"13e minibench rc {rc}")
+    if problems:
+        fail("13: " + "; ".join(problems))
+    return c, checks
+
+
+# ---------------------------------------------------------------------------
 # phase 11: the sharded port (tensor and data parallelism)
 # ---------------------------------------------------------------------------
 
@@ -3267,6 +3456,23 @@ KERNELS = {
     "headline_rows2": ("K2 attention_rows2 (bf16 cache), the headline: "
                        "launches per RegionE edit", SRC, f"{JAX_FA}:357",
                        "headline_edit", "attention_rows2"),
+    "tp4_attention": ("K1 attention at a Qwen tp 4 rank's shape "
+                      "[2,6,8704,128] (exec_full_qwen60, grid 64, t_txt "
+                      "512): launches of 13b's edit, as many as each tp 4 "
+                      "rank makes", SRC, f"{JAX_FA}:69", "exec60",
+                      "attention"),
+    "tp4_rows2_int8": ("K2q attention_rows2_quant (int8 cache) at a Qwen "
+                       "tp 4 rank's shape (6 heads, 512 + 13b's capacity "
+                       "rows over 8192): launches of 13b's edit, as many as "
+                       "each tp 4 rank makes", SRC, f"{JAX_FA}:357",
+                       "exec60", "attention_rows2_quant"),
+    "tp2_attention": ("K1 attention at Step1X tp 2's per-rank shape "
+                      "[2,12,2176,128]: launches per rank of 11b", SRC,
+                      f"{JAX_FA}:69", "sharded_step1x", "attention"),
+    "tp2_rows2": ("K2 attention_rows2 (bf16 cache) at Step1X tp 2's "
+                  "per-rank shape (12 heads, 128 + 384 rows over 2048): "
+                  "launches per rank of 11b", SRC, f"{JAX_FA}:357",
+                  "sharded_step1x", "attention_rows2"),
 }
 RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "library")
@@ -3317,6 +3523,13 @@ def main():
     checks.update(bench_checks)
     log(f"phase 12 (the measuring entry points, the headline workload) done "
         f"in {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    paths["exec60"], script_checks = phase_ported_scripts(te)
+    checks.update(script_checks)
+    release()
+    log(f"phase 13 (encoder placement, exec_full_qwen60, profile_rags, "
+        f"fidelity_int8, the minibench chain) done in "
+        f"{time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     qwen, model, qwen_checks, qwen_request, probe5b = phase_qwen_slice(
         qwen_grid)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import sys
 import time
+from pathlib import Path
 from typing import Callable
 
 import numpy as np
@@ -236,6 +237,39 @@ def read_counts() -> dict:
             "attention_rows2_quant": fa.attention_rows2_quant.launches,
             "attention_quant": fa.attention_quant.launches,
             "fused_partition": pk.fused_partition.launches}
+
+
+def spawn_ranks(code: str, args, n: int, limit: float, label: str,
+                env=None) -> list[str]:
+    """n processes `python -c code <rank> <n> *args`, joined by the caller's
+    store, killed after `limit` seconds or once one fails.  Returns their
+    outputs (stdout and stderr); raises with the first failed rank's."""
+    import os
+    import subprocess
+    repo = Path(__file__).resolve().parents[2]
+    env = dict(os.environ, PYTHONPATH=str(repo), **(env or {}))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), str(n), *map(str, args)],
+        cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(n)]
+    deadline = time.monotonic() + limit
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        outs = [p.communicate()[0] for p in procs]
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        r = failed[0]
+        raise RuntimeError(f"{label}: rank {r} failed (rc "
+                           f"{procs[r].returncode}):\n{outs[r][-3000:]}")
+    return outs
 
 
 def timed_edit(pipe, lat0, ctx, grid: int, dense_only: bool = False):

@@ -15,11 +15,12 @@ metadata.json per task.
 stops instead of moving to the CPU: pass `--device cpu` for the plain
 PyTorch path (tests, small presets).  `--model_path` loads a
 diffusers-layout checkpoint directory (transformer/, vae/ and, when
-present, text_encoder/ with the backend's prompt-encoder recipe;
-`weights.convert.load_converted`).  Without it the weights are random,
-drawn from `--seed` (`init_params`), with a small AutoencoderKL of the
-production spatial factor 8 (so the default ~1024^2 target is a 64 x 64
-token grid) and `MockTextEncoder`.  `--int8` / `--int4` quantize the
+present, text_encoder/ with the backend's prompt-encoder recipe, in fp32
+and placed where `utils.memplan` says it fits beside the weights in their
+final format; `weights.convert.load_converted`).  Without it the weights
+are random, drawn from `--seed` (`init_params`), with a small AutoencoderKL
+of the production spatial factor 8 (so the default ~1024^2 target is a 64
+x 64 token grid) and `MockTextEncoder`.  `--int8` / `--int4` quantize the
 backbone in place after loading (`ops.quant.quantize_params`, with
 `--quantize_mods` and `--int4_mods`), `--act_int8` runs the int8 linears
 as W8A8; `--act_int8` needs `--int8` and excludes `--int4`, as in the JAX
@@ -201,10 +202,25 @@ def build_pipeline(args):
                          "(int4 buys single-card fit; W8A8 speed needs "
                          "int8 weights)")
 
+    quantize_mods = getattr(args, "quantize_mods", None)
+    if quantize_mods is None:
+        quantize_mods = act_int8 or int4
+    int4_mods = getattr(args, "int4_mods", None)
+    if int4_mods is None:
+        # the single-card format of the 60-block Qwen packs the
+        # modulations to int4 too; --int4_mods false keeps them int8
+        int4_mods = int4
     if args.model_path:
         from regione_tpu_torch.weights.convert import load_converted
+        # the prompt encoder's placement is planned for the weights' format
+        # of the denoise (they are quantized after loading)
+        weights = (dict(int8=True, bits=4 if int4 else 8,
+                        quantize_mods=quantize_mods,
+                        int4_mods=int4_mods and int4)
+                   if int8 or int4 else {})
         model, vae_cfg, vae, encoder = load_converted(
-            args.model_path, cfg, backend=backend, device=dev)
+            args.model_path, cfg, backend=backend, device=dev,
+            weights=weights)
     else:
         model = init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
                             dev)
@@ -219,14 +235,6 @@ def build_pipeline(args):
                                   max_length=128)
     if int8 or int4:
         from regione_tpu_torch.ops.quant import quantize_params
-        quantize_mods = getattr(args, "quantize_mods", None)
-        if quantize_mods is None:
-            quantize_mods = act_int8 or int4
-        int4_mods = getattr(args, "int4_mods", None)
-        if int4_mods is None:
-            # the single-card format of the 60-block Qwen packs the
-            # modulations to int4 too; --int4_mods false keeps them int8
-            int4_mods = int4
         quantize_params(model, quantize_mods=quantize_mods,
                         bits=4 if int4 else 8, int4_mods=int4_mods and int4)
     if act_int8:

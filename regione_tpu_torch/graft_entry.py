@@ -20,17 +20,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import os
-import subprocess
-import sys
 import tempfile
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-REPO = Path(__file__).resolve().parents[1]
 
 # (seed, threshold) of each dryrun topology.  The JAX dryrun's pairs keep
 # the partition partial for `jax.random` weights; `init_params` draws other
@@ -129,36 +124,16 @@ def dryrun_multichip(n_devices: int, params: dict | None = None,
         kernels.build()     # once, before the ranks load it
     elif dev.type != "cpu":
         raise ValueError(f"dryrun_multichip: no ranks for device {dev}")
+    from regione_tpu_torch.bench.common import spawn_ranks
     with tempfile.TemporaryDirectory() as work:
         work = Path(work)
         if params is not None:
             torch.save(params, work / "params.pt")
-        env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-        code = ("import sys; from regione_tpu_torch import graft_entry as g; "
-                "g._dryrun_rank(*sys.argv[1:])")
-        procs = [subprocess.Popen(
-            [sys.executable, "-c", code, str(work), str(r), str(n_devices),
-             dev.type], cwd=REPO, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(n_devices)]
-        deadline = time.monotonic() + DRYRUN_LIMIT_S
-        try:
-            while any(p.poll() is None for p in procs):
-                if any(p.returncode not in (None, 0) for p in procs) or \
-                        time.monotonic() > deadline:
-                    break
-                time.sleep(0.05)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-            outs = [p.communicate()[0] for p in procs]
+        outs = spawn_ranks(
+            "import sys; from regione_tpu_torch import graft_entry as g; "
+            "g._dryrun_rank(*sys.argv[1:])", [work, dev.type], n_devices,
+            DRYRUN_LIMIT_S, "dryrun_multichip", env={"OMP_NUM_THREADS": "1"})
         print(outs[0], end="")
-        failed = [(r, o) for r, (p, o) in enumerate(zip(procs, outs))
-                  if p.returncode != 0]
-        if failed:
-            r, out = failed[0]
-            raise RuntimeError(f"dryrun_multichip: rank {r} failed (rc "
-                               f"{procs[r].returncode}):\n{out[-3000:]}")
         results = [json.loads((work / f"rank{r}.json").read_text())
                    for r in range(n_devices)]
     if any(res != results[0] for res in results[1:]):
@@ -166,7 +141,7 @@ def dryrun_multichip(n_devices: int, params: dict | None = None,
     return results[0]
 
 
-def _dryrun_rank(work: str, rank: str, world: str, device: str) -> None:
+def _dryrun_rank(rank: str, world: str, work: str, device: str) -> None:
     """One rank of `dryrun_multichip`: joins the group (NCCL on card
     `rank`, or gloo on the CPU), runs `_dryrun_multichip_impl` and writes
     its statistics to rank<r>.json."""

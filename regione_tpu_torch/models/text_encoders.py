@@ -2,8 +2,7 @@
 `regione_tpu/models/text_encoders.py`.
 
 The JAX package's encoders already run `transformers` in PyTorch; the port
-keeps them as they are, except that their models are placed on `cuda`
-unless the caller asks for the CPU:
+keeps them as they are, except for where their models live (below):
   * `QwenVLPromptEncoder`: Qwen2.5-VL behind a chat template, the last
     hidden states with the template prefix dropped and each sequence
     re-padded (`drop_and_repad`); Qwen-Image-Edit, its Plus variant and
@@ -14,8 +13,14 @@ unless the caller asks for the CPU:
     from paths or from a diffusers-layout checkpoint directory;
   * `MockTextEncoder`: seeded pseudo-features (numpy, no checkpoint), equal
     to the JAX one for the same prompt and image.
-The encoders load in fp32, the reference's choice.  `transformers` is
-imported only when a real encoder is built.
+The encoders load in fp32, the reference's choice, and each is placed by
+`placement` (`PLACEMENTS`): "card" keeps it on `device` (default `cuda`)
+for good; "offload" keeps it on the host (in pinned memory) and copies it
+to `device` for each encode only, so it is off the card during the
+denoise; "host" encodes on the CPU, as the JAX package does.  With a CPU
+`device` every placement is "host".  `weights.convert.load_converted`
+passes the placement `utils.memplan.choose_placement` picks.
+`transformers` is imported only when a real encoder is built.
 
 Interface: encode(prompt, image=None) -> (embeds [1, T, D] fp32, pooled
 [1, P] fp32 | None, mask [1, T] bool), all numpy; encoding runs once per
@@ -24,9 +29,75 @@ prompt, before the denoise loop.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import time
 
 import numpy as np
+
+PLACEMENTS = ("card", "offload", "host")
+
+
+class _Placed:
+    """Where an encoder's models live (`placement`) and, under "offload",
+    the copies to the card around an encode (`on_device`, re-entrant: the
+    two CFG encodes of one `prepare_inputs` share one copy).  `copy_s`: the
+    seconds of host -> card copies so far, each ended by a synchronize;
+    the way back drops the card's tensors (the host keeps the master), so
+    it copies nothing."""
+
+    def _place(self, models, device, placement):
+        import torch
+        if placement not in PLACEMENTS:
+            raise ValueError(f"placement {placement!r}, not one of "
+                             f"{PLACEMENTS}")
+        device = torch.device(device)
+        if device.type == "cpu":
+            placement = "host"
+        self.placement, self._models = placement, models
+        self.device = device if placement == "card" else torch.device("cpu")
+        self._card, self._depth, self.copy_s = device, 0, 0.0
+        pin = placement == "offload" and torch.cuda.is_available()
+        for m in models:
+            if placement == "card":
+                m.to(device)
+            else:
+                for t in self._tensors(m):
+                    t.data = t.data.to("cpu")
+                    if pin:
+                        t.data = t.data.pin_memory()
+        self._host = [[t.data for t in self._tensors(m)] for m in models]
+
+    @staticmethod
+    def _tensors(model):
+        return [*model.parameters(), *model.buffers()]
+
+    @contextlib.contextmanager
+    def on_device(self):
+        """The models on the card for the block (offload), else as they
+        are."""
+        if self.placement != "offload" or self._depth:
+            self._depth += 1
+            try:
+                yield
+            finally:
+                self._depth -= 1
+            return
+        import torch
+        t = time.perf_counter()
+        for m in self._models:
+            for x in self._tensors(m):
+                x.data = x.data.to(self._card, non_blocking=True)
+        torch.cuda.synchronize(self._card)
+        self.copy_s += time.perf_counter() - t
+        self.device, self._depth = self._card, 1
+        try:
+            yield
+        finally:
+            for m, host in zip(self._models, self._host):
+                for x, h in zip(self._tensors(m), host):
+                    x.data = h
+            self.device, self._depth = torch.device("cpu"), 0
 
 
 class MockTextEncoder:
@@ -232,7 +303,17 @@ def load_vl_processor(path: str):
             AutoTokenizer.from_pretrained(path))
 
 
-class QwenVLPromptEncoder:
+def vl_class():
+    """transformers' Qwen2.5-VL conditional-generation class (Qwen2-VL's
+    on a transformers that predates it)."""
+    try:
+        from transformers import Qwen2_5_VLForConditionalGeneration as VL
+    except ImportError:  # older transformers naming
+        from transformers import Qwen2VLForConditionalGeneration as VL
+    return VL
+
+
+class QwenVLPromptEncoder(_Placed):
     """Qwen2.5-VL prompt encoder: chat template + last-hidden-state +
     prefix drop (diffusers `QwenImageEditPipeline._get_qwen_prompt_embeds`).
 
@@ -240,26 +321,25 @@ class QwenVLPromptEncoder:
     Step1X shares the mechanism; its template/drop come from the diffusers
     `step1xedit` port and its hidden states feed the connector."""
 
-    def __init__(self, model_path: str, variant: str = "qwen-image-edit",
-                 max_length: int = 1024, device: str = "cuda",
-                 template: str | None = None, drop_idx: int | None = None,
-                 processor_path: str | None = None):
+    def __init__(self, model_path: str | None,
+                 variant: str = "qwen-image-edit", max_length: int = 1024,
+                 device: str = "cuda", template: str | None = None,
+                 drop_idx: int | None = None,
+                 processor_path: str | None = None,
+                 placement: str = "card", model=None, processor=None):
         import torch
-
-        try:
-            from transformers import Qwen2_5_VLForConditionalGeneration as VL
-        except ImportError:  # older transformers naming
-            from transformers import Qwen2VLForConditionalGeneration as VL
 
         self.torch = torch
         self.variant = variant
         # diffusers-layout checkpoints keep the processor/tokenizer config
         # in a sibling subfolder, not next to the model weights
-        self.processor = load_vl_processor(processor_path or model_path)
-        self.model = VL.from_pretrained(
-            model_path, dtype=torch.float32).to(device).eval()
+        self.processor = processor or load_vl_processor(
+            processor_path or model_path)
+        # `model`: a Qwen2.5-VL built already (fp32), in place of a load
+        self.model = (model if model is not None else vl_class(
+            ).from_pretrained(model_path, dtype=torch.float32)).eval()
+        self._place([self.model], device, placement)
         self.max_length = max_length
-        self.device = device
         self.template = template or (
             QWEN_EDIT_PLUS_TEMPLATE if variant == "qwen-image-edit-plus"
             else QWEN_EDIT_TEMPLATE)
@@ -301,8 +381,8 @@ class QwenVLPromptEncoder:
         kwargs = {"text": [text], "padding": True, "return_tensors": "pt"}
         if images:
             kwargs["images"] = images
-        inputs = self.processor(**kwargs).to(self.device)
-        with torch.no_grad():
+        with self.on_device(), torch.no_grad():
+            inputs = self.processor(**kwargs).to(self.device)
             out = self.model(**inputs, output_hidden_states=True)
         hidden = out.hidden_states[-1].float().cpu().numpy()
         mask = inputs["attention_mask"].cpu().numpy()
@@ -318,7 +398,7 @@ class QwenVLPromptEncoder:
 # ---------------------------------------------------------------------------
 
 
-class FluxPromptEncoder:
+class FluxPromptEncoder(_Placed):
     """T5-XXL last-hidden-state sequence features + CLIP-L pooled features
     (diffusers `FluxKontextPipeline._get_t5_prompt_embeds` /
     `_get_clip_prompt_embeds`): T5 padded to max_sequence_length=512 with
@@ -331,25 +411,26 @@ class FluxPromptEncoder:
     def __init__(self, t5_path: str, clip_path: str, device: str = "cuda",
                  max_length: int | None = None,
                  t5_tokenizer_path: str | None = None,
-                 clip_tokenizer_path: str | None = None):
+                 clip_tokenizer_path: str | None = None,
+                 placement: str = "card"):
         import torch
         from transformers import (AutoTokenizer, CLIPTextModel,
                                   T5EncoderModel)
 
         self.torch = torch
-        self.device = device
         self.t5_tok = AutoTokenizer.from_pretrained(t5_tokenizer_path or t5_path)
         self.t5 = T5EncoderModel.from_pretrained(
-            t5_path, dtype=torch.float32).to(device).eval()
+            t5_path, dtype=torch.float32).eval()
         self.clip_tok = AutoTokenizer.from_pretrained(
             clip_tokenizer_path or clip_path)
         self.clip = CLIPTextModel.from_pretrained(
-            clip_path, dtype=torch.float32).to(device).eval()
+            clip_path, dtype=torch.float32).eval()
+        self._place([self.t5, self.clip], device, placement)
         self.max_length = max_length or self.T5_MAX_LENGTH
 
     def encode(self, prompt: str, image=None):
         torch = self.torch
-        with torch.no_grad():
+        with self.on_device(), torch.no_grad():
             t5_in = self.t5_tok(
                 prompt, padding="max_length", max_length=self.max_length,
                 truncation=True, return_tensors="pt").to(self.device)
@@ -377,16 +458,19 @@ def encoder_for_backend(backend: str, **paths):
                    else "qwen-image-edit" if backend == "qwen-image-edit"
                    else "step1x-edit")
         return QwenVLPromptEncoder(paths["model_path"], variant=variant,
-                                   device=paths.get("device", "cuda"))
+                                   device=paths.get("device", "cuda"),
+                                   placement=paths.get("placement", "card"))
     if backend == "flux-kontext":
         return FluxPromptEncoder(paths["t5_path"], paths["clip_path"],
                                  device=paths.get("device", "cuda"),
                                  t5_tokenizer_path=paths.get("t5_tokenizer_path"),
-                                 clip_tokenizer_path=paths.get("clip_tokenizer_path"))
+                                 clip_tokenizer_path=paths.get("clip_tokenizer_path"),
+                                 placement=paths.get("placement", "card"))
     raise KeyError(f"no encoder recipe for backend {backend!r}")
 
 
-def encoder_from_checkpoint(root, backend: str, device: str = "cuda"):
+def encoder_from_checkpoint(root, backend: str, device: str = "cuda",
+                            placement: str = "card"):
     """Reference-matching prompt encoder from a diffusers-layout checkpoint
     directory (the layout `from_pretrained` reads; model_index.json
     subfolders).  This is the loading-path entry used by
@@ -399,7 +483,8 @@ def encoder_from_checkpoint(root, backend: str, device: str = "cuda"):
 
     Raises KeyError for unknown backends and FileNotFoundError when the
     expected subfolders are absent (callers fall back to mock encoders for
-    checkpoint-less environments)."""
+    checkpoint-less environments).  `placement`: see the module docstring
+    (`weights.convert.load_converted` passes memplan's choice)."""
     from pathlib import Path
     root = Path(root)
 
@@ -419,7 +504,8 @@ def encoder_from_checkpoint(root, backend: str, device: str = "cuda"):
         return encoder_for_backend(
             backend, t5_path=t5, clip_path=clip, device=device,
             t5_tokenizer_path=sub("tokenizer_2") or t5,
-            clip_tokenizer_path=sub("tokenizer") or clip)
+            clip_tokenizer_path=sub("tokenizer") or clip,
+            placement=placement)
 
     te = sub("text_encoder")
     if te is None:
@@ -437,14 +523,14 @@ def encoder_from_checkpoint(root, backend: str, device: str = "cuda"):
     # test_text_encoders), and correct for retrained/synthetic tokenizers
     # (weights.tiny_vl dress rehearsals) where the constant would misdrop
     return QwenVLPromptEncoder(
-        te, variant=variant, device=device,
+        te, variant=variant, device=device, placement=placement,
         template=(QWEN_EDIT_PLUS_TEMPLATE
                   if variant == "qwen-image-edit-plus"
                   else QWEN_EDIT_TEMPLATE),
         processor_path=sub("processor", "tokenizer") or te)
 
 
-class HFTextEncoder:
+class HFTextEncoder(_Placed):
     """A generic `transformers` encoder: the last hidden states of the
     prompt padded to `max_length`, and the pooler output where the model
     has one."""
@@ -457,13 +543,13 @@ class HFTextEncoder:
         self.torch = torch
         self.tokenizer = AutoTokenizer.from_pretrained(model_path)
         self.model = AutoModel.from_pretrained(
-            model_path, dtype=torch.float32).to(device).eval()
+            model_path, dtype=torch.float32).eval()
+        self._place([self.model], device, "card")
         self.max_length = max_length
-        self.device = device
 
     def encode(self, prompt: str, image=None):
         torch = self.torch
-        with torch.no_grad():
+        with self.on_device(), torch.no_grad():
             toks = self.tokenizer(
                 prompt, return_tensors="pt", padding="max_length",
                 truncation=True, max_length=self.max_length).to(self.device)

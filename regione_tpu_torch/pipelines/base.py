@@ -33,6 +33,7 @@ pooled [1, P] | None, mask [1, T])` (numpy), e.g.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -451,10 +452,16 @@ class EditPipelineBase:
 
         # the same encoder image(s) condition both CFG halves
         enc_imgs = self.encoder_images(images, width, height)
-        emb, pooled, mask = self.text_encoder.encode(prompt, image=enc_imgs)
+        # an offloaded encoder comes to the card once for both encodes
+        on_device = getattr(self.text_encoder, "on_device",
+                            contextlib.nullcontext)
+        with on_device():
+            emb, pooled, mask = self.text_encoder.encode(prompt,
+                                                         image=enc_imgs)
+            if self.do_cfg:
+                emb_n, pooled_n, mask_n = self.text_encoder.encode(
+                    negative_prompt, image=enc_imgs)
         if self.do_cfg:
-            emb_n, pooled_n, mask_n = self.text_encoder.encode(
-                negative_prompt, image=enc_imgs)
             # the halves may come at different lengths: pad both to the
             # longer, the padding masked by the text bias
             t_max = max(emb.shape[1], emb_n.shape[1])

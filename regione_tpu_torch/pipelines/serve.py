@@ -159,14 +159,21 @@ class EditService:
 
     def run(self, requests: Sequence[EditRequest]) -> list[EditResult]:
         """Each request in turn; the next one's preparation overlaps this
-        one's denoise and decode."""
+        one's denoise and decode, unless the prompt encoder is offloaded
+        (`text_encoders`: it may be on the card only while no denoise
+        runs): then the next preparation ends before this denoise
+        starts."""
         results: list[EditResult] = []
+        overlap = getattr(self.pipe.text_encoder, "placement",
+                          None) != "offload"
         with ThreadPoolExecutor(max_workers=1) as prep_pool:
             fut = prep_pool.submit(self._prepare, requests[0])
             for i in range(len(requests)):
                 prepared, prep_s = fut.result()
                 if i + 1 < len(requests):
                     fut = prep_pool.submit(self._prepare, requests[i + 1])
+                    if not overlap:
+                        fut.result()
                 t0 = time.perf_counter()
                 img, stats = self._denoise_decode(prepared)
                 results.append(EditResult(

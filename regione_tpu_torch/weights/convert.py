@@ -430,7 +430,8 @@ def _module_from_state(cls, cfg, state):
 
 
 def load_converted(model_path, cfg, backend: str | None = None,
-                   load_text_encoder: bool = True, device="cuda", mesh=None):
+                   load_text_encoder: bool = True, device="cuda", mesh=None,
+                   weights: dict | None = None):
     """Load a diffusers-layout checkpoint directory:
       <model_path>/transformer/*.safetensors
       <model_path>/vae/*.safetensors (+ config.json)
@@ -445,7 +446,14 @@ def load_converted(model_path, cfg, backend: str | None = None,
 
     `mesh`: a (dp, tp) mesh (`parallel.sharding.make_mesh`): the MMDiT is
     this rank's shard, read from the files slice by slice (its
-    `loaded_bytes`: the bytes read for it)."""
+    `loaded_bytes`: the bytes read for it).
+
+    The prompt encoder's placement ("card", "offload" or "host",
+    `text_encoders`) is `auto_placement`'s: `utils.memplan.choose_placement`
+    for this checkpoint's encoder beside `cfg`'s weights (in the format
+    `weights` names: `memplan.plan`'s int8 / bits / quantize_mods /
+    int4_mods, the one the denoise will hold) on `device`'s card, decided
+    before anything is loaded and logged on a line of its own."""
     from regione_tpu_torch.models.mmdit import MMDiT
     from regione_tpu_torch.models.text_encoders import (
         HFTextEncoder, MockTextEncoder, encoder_from_checkpoint)
@@ -453,6 +461,8 @@ def load_converted(model_path, cfg, backend: str | None = None,
     from regione_tpu_torch.models.vae_wan import WanVAEConfig
 
     root = Path(model_path)
+    if load_text_encoder and backend is not None:
+        placement = auto_placement(root, cfg, backend, device, mesh, weights)
     state = _load_torch_state(root / "transformer")
     if is_qwen_state(state):
         state = normalize_qwen_keys(state)
@@ -498,10 +508,39 @@ def load_converted(model_path, cfg, backend: str | None = None,
     if not load_text_encoder or not te_dir.exists():
         encoder = MockTextEncoder(cfg.txt_in_dim, cfg.pooled_dim or None)
     elif backend is not None:
-        encoder = encoder_from_checkpoint(root, backend, device=device)
+        encoder = encoder_from_checkpoint(root, backend, device=device,
+                                          placement=placement)
     else:
         encoder = HFTextEncoder(str(te_dir), device=device)
     return model, vae_cfg, vae, encoder
+
+
+def auto_placement(root, cfg, backend: str, device, mesh=None,
+                   weights: dict | None = None) -> str:
+    """`utils.memplan.choose_placement` for the text encoder of the
+    checkpoint at `root` beside `cfg`'s weights on `device`'s card (its
+    total memory), at tp = the mesh's; logged on its own line.  "card" off
+    the card (a CPU run places nothing) or with no text encoder."""
+    import sys
+
+    from regione_tpu_torch.utils import memplan
+    device = torch.device(device)
+    encoder = memplan.checkpoint_encoder(root, backend)
+    if device.type != "cuda" or encoder is None:
+        return "card"
+    hbm = torch.cuda.get_device_properties(device).total_memory
+    tp = mesh.size(1) if mesh is not None else 1
+    placement, p = memplan.choose_placement(
+        cfg, encoder, hbm, batch_cfg=1 if backend == "flux-kontext" else 2,
+        tp=tp, **(weights or {}))
+    gib = 2 ** 30
+    print(f"[load] prompt encoder placement: {placement} (memplan at grid "
+          f"{p.grid}, t_txt {p.t_txt}, tp {tp}: weights "
+          f"{p.param_bytes / gib:.2f} + encoder {p.encoder_bytes / gib:.2f} "
+          f"+ cache {p.cache_bytes / gib:.2f} + activations "
+          f"{p.activation_bytes_est / gib:.2f} = {p.total_bytes / gib:.2f} "
+          f"GiB on a {hbm / gib:.2f} GiB card)", file=sys.stderr, flush=True)
+    return placement
 
 
 def main(argv=None):

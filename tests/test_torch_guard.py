@@ -6,7 +6,10 @@
     test process has imported jax already through tests/conftest.py);
   * no source file of the port and not `chip_smoke.py` names
     `regione_tpu` (other than `regione_tpu_torch`) in an import statement,
-    lazy imports inside functions included;
+    lazy imports inside functions included (the measuring entry points of
+    `bench/` are named in the import check); no shell script of the port
+    (`scripts/torch_*.sh`, `scripts/torch_demo/*.sh`) runs a module of the
+    JAX package or its console script;
   * the CLI with no CUDA card stops unless `--device cpu` is given;
   * the kernel modules import with no triton and no nvcc;
   * CPU tensors take the plain path (no launch is counted), and a device
@@ -59,6 +62,10 @@ new = {"regione_tpu_torch.models.vae", "regione_tpu_torch.models.vae_wan",
        "regione_tpu_torch.utils.telemetry", "regione_tpu_torch.utils.memplan",
        "regione_tpu_torch.pipelines.thinker",
        "regione_tpu_torch.parallel", "regione_tpu_torch.parallel.sharding"} | {
+       "regione_tpu_torch.bench." + m for m in (
+           "common", "headline", "profile_steps", "serve_batch", "fullsize",
+           "exec_full_qwen60", "profile_rags", "fidelity_int8",
+           "encoder_placement")} | {
        "regione_tpu_torch.eval." + m for m in (
            "metrics", "merge", "run_metrics", "preprocess", "lpips_torch",
            "pixelprobe", "viescore", "run_viescore")}
@@ -100,6 +107,21 @@ _PORT_FILES = sorted((REPO / "regione_tpu_torch").rglob("*.py")) + [
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_source_never_imports_the_jax_package(path):
     assert _jax_package_imports(path) == []
+
+
+_PORT_SHELL = sorted((REPO / "scripts").glob("torch_*.sh")) + sorted(
+    (REPO / "scripts" / "torch_demo").glob("*.sh"))
+
+
+@pytest.mark.parametrize("path", _PORT_SHELL,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_shell_scripts_never_call_the_jax_package(path):
+    """A port script runs `regione_tpu_torch` modules and the port's
+    console script only: no `regione_tpu.` module, no `regione-tpu `."""
+    text = path.read_text()
+    assert re.findall(r"\bregione_tpu\.", text) == []
+    assert re.findall(r"\bregione-tpu\s", text) == []
+    assert "regione_tpu_torch." in text or "regione-tpu-torch" in text
 
 
 def test_the_import_scan_sees_every_form(tmp_path):
