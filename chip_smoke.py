@@ -19,6 +19,20 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
      `torch.zeros(1).zero_()`) and, for the attention kernels, the fastest
      `scaled_dot_product_attention` backend on the same inputs (timed
      only: the port never calls it);
+  3f. the fused block kernels (`ops.fused`, csrc/fused_block.cu) against
+     their plain versions in bf16: K7 AdaLN, residual + AdaLN and the
+     residual alone (modulation vectors as `_modulation`'s strided chunk
+     views), K8 qk-RMSNorm + RoPE from the strided linear1 split, into a
+     packed buffer at row offset t_txt, and v's packing alone, K9 [attn ‖
+     gelu(mlp_h)] and the GELU alone, at the headline's shape (B 2, 8320
+     rows, hidden 1536, 12 heads), Qwen's and FLUX's at grid 64 (8704
+     rows, hidden 3072, 24 heads; B 2 and 1), a headline RAGS step (1152
+     rows, [B, cap, 128] RoPE tables), a Qwen tp 4 rank (6 heads; K8 and
+     K9 only) and a ragged B 1 (8283 rows); each with its kernel and plain
+     ms and its bound (bytes at the HBM rate), and the one PyTorch call of
+     the same function where there is one (`torch.addcmul` for the
+     residual alone, `F.gelu` for the GELU alone; timed only); every later MMDiT edit on the card
+     launches each of K7-K9 (the checks below read their counts);
   4. small head_dim-128 models: the card's path against the port's CPU
      path on the same weights and inputs: Step1X topology (bf16 cache),
      Qwen topology with the int8 and the int4 cache, Qwen-Image-Edit-Plus
@@ -672,6 +686,184 @@ def phase_kernels(grid, qwen_grid):
 
 
 # ---------------------------------------------------------------------------
+# phase 3f: the fused block kernels K7-K9 against their plain versions
+# ---------------------------------------------------------------------------
+
+# the fused kernels' launch counters (`ops.fused`, `read_counts` keys)
+FUSED = ("adaln", "residual_adaln", "gated_residual", "qk_norm_rope",
+         "gelu_pack")
+
+
+def fused_ok(counts) -> bool:
+    """Every MMDiT forward on the card launches each fused wrapper: K7's
+    three modes, K8 and K9 (the double block's GELU-only mode at least)."""
+    return all(counts[k] > 0 for k in FUSED)
+
+
+def check_fused(label, kernel, plain, nbytes, flops, iters=10,
+                library=(None, None)):
+    """A fused kernel's bf16 output(s) against its plain version on the
+    same inputs, within ATTN_REL_BOUND of the output's scale; kernel and
+    plain ms by CUDA events (the kernel's a call from Python, and on the
+    device: its calls captured in one CUDA graph); bound: `nbytes` (inputs
+    read once, outputs written once) at the HBM rate or `flops` at the
+    fp32 rate.  `library` (fn, name): the one PyTorch call that computes
+    the same function, timed as a yardstick (its output is not checked);
+    (None, None) where no single call does (AdaLN, K8, K9 with the
+    concatenation)."""
+    import torch
+    got, want = kernel(), plain()
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    torch.cuda.synchronize()
+    max_abs = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+    scale = max(float(w.float().abs().max()) for w in want)
+    ok = all(bool(torch.isfinite(g).all()) and g.shape == w.shape
+             for g, w in zip(got, want)) and max_abs <= ATTN_REL_BOUND * scale
+    ms = cuda_ms(kernel, iters)
+    dev_ms = graph_ms(kernel, iters)
+    pms = cuda_ms(plain, iters)
+    lib_ms = cuda_ms(library[0], iters) if library[0] else None
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_FP32)
+    log(f"{label}: max_abs {max_abs:.3e} max_rel {max_abs / scale:.3e} "
+        f"(bound {ATTN_REL_BOUND:.0e} x {scale:.3e}) kernel {ms:.4f} ms a "
+        f"call, {dev_ms:.4f} ms on the device (CUDA graph; "
+        f"{nbytes / dev_ms / 1e6:.0f} GB/s), plain {pms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by}, library "
+        + (f"{lib_ms:.4f} ms ({library[1]}) " if lib_ms else "none ")
+        + ("ok" if ok else "FAIL"))
+    return dict(ok=ok, max_abs_err=max_abs, ms=ms, plain_ms=pms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                library=library[1], graph_ms=dev_ms)
+
+
+# (label, B, rows, hidden, heads, rope table per batch row, K7 too): the
+# headline's single block (step1x-edit:dev, grid 64, t_txt 128), Qwen at
+# grid 64 (t_txt 512, CFG batch 2), FLUX at grid 64 (B 1), a headline RAGS
+# step (128 + 1024 rows, [B, cap, 128] tables), a Qwen tp 4 rank (6 heads;
+# its residual stream is not sharded, so K7 there is Qwen grid 64's shape
+# and is not run again) and a ragged B 1 row count
+FUSED_SHAPES = (("headline", 2, 8320, 1536, 12, False, True),
+                ("qwen grid 64", 2, 8704, 3072, 24, False, True),
+                ("flux grid 64", 1, 8704, 3072, 24, False, True),
+                ("headline rags", 2, 1152, 1536, 12, True, True),
+                ("qwen tp 4 rank", 2, 8704, 3072, 6, False, False),
+                ("ragged", 1, 8283, 1536, 12, False, True))
+
+
+def phase_fused():
+    """3f: K7 (AdaLN; residual + AdaLN; the residual alone), K8 (q and k
+    of a single block from the strided linear1 split; a double block's
+    image rows packed at offset t_txt; v's packing alone) and K9 (the
+    single block's [attn ‖ gelu(mlp_h)] from the strided split; the
+    double block's GELU alone) at FUSED_SHAPES (K7 where the entry says
+    so), each against its plain version.  Returns the headline's records."""
+    import torch
+    import torch.nn.functional as F
+    from regione_tpu_torch.models.layers import rope_table
+    from regione_tpu_torch.ops import fused
+    dev, bf = torch.device(DEVICE), torch.bfloat16
+    rng = np.random.default_rng(15)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(scale * rng.standard_normal(
+            shape, np.float32)).to(dev, bf)
+    results, ok = {}, True
+    for label, b, s, h, heads, per_batch, k7 in FUSED_SHAPES:
+        inner, mlp = heads * 128, 4 * heads * 128
+        e = b * s                       # rows of the batch
+        x = t(b, s, h, scale=2.0)
+        y = t(b, s, h)
+        # the modulation's strided views: chunks of [B, 1, 6h]
+        shift, scale, gate = t(b, 1, 6 * h, scale=0.3).chunk(6, dim=-1)[:3]
+        row = e * h * 2                 # bytes of one [B, S, h] bf16
+        recs = {} if not k7 else {
+            "adaln": check_fused(
+                f"3f K7 adaln, {label} [{b},{s},{h}]",
+                lambda: fused.adaln(x, shift, scale),
+                lambda: fused.adaln_reference(x, shift, scale),
+                2 * row, 12 * e * h),
+            "residual_adaln": check_fused(
+                f"3f K7 residual_adaln, {label} [{b},{s},{h}]",
+                lambda: fused.residual_adaln(x, gate, y, shift, scale),
+                lambda: (fused.gated_residual_reference(x, gate, y),
+                         fused.adaln_reference(
+                             fused.gated_residual_reference(x, gate, y),
+                             shift, scale)),
+                4 * row, 14 * e * h),
+            "gated_residual": check_fused(
+                f"3f K7 gated_residual, {label} [{b},{s},{h}]",
+                lambda: fused.gated_residual(x, gate, y),
+                lambda: fused.gated_residual_reference(x, gate, y),
+                3 * row, 2 * e * h,
+                library=(lambda: torch.addcmul(x, gate, y), "addcmul"))}
+        # K8: q of a single block, a column slice of linear1's output
+        wide = t(b, s, 3 * inner + mlp)
+        q = wide[..., :inner]
+        ids = torch.stack([torch.zeros(s), torch.arange(s) // 64,
+                           torch.arange(s) % 64], -1).to(dev)
+        rope = rope_table(ids, (16, 56, 56))
+        if per_batch:
+            rope = tuple(torch.stack([c, c.flip(0)][:b]) for c in rope)
+        norm = (1.0 + 0.2 * torch.randn(128, generator=torch.Generator()
+                                        .manual_seed(0))).to(dev, bf)
+        tables = (b if per_batch else 1) * s * 128 * 4 * 2
+        heads_b = e * inner * 2
+        recs["qk_norm_rope"] = check_fused(
+            f"3f K8 qk_norm_rope, {label}: q [{b},{s},{inner}] of the "
+            f"linear1 split (row stride {wide.stride(1)})"
+            + (", [B, S, 128] tables" if per_batch else ""),
+            lambda: fused.qk_norm_rope(q, heads, norm, rope),
+            lambda: fused.qk_norm_rope_reference(q, heads, norm, rope),
+            2 * heads_b + tables, 12 * e * inner)
+        # K8 at a row offset: a double block's image rows after t_txt text
+        # rows of a packed [B, H, t_txt + S, 128] buffer (the tables of the
+        # image rows), and v's packing alone
+        t_txt = 128
+        packed = torch.empty((b, heads, t_txt + s, 128), dtype=bf,
+                             device=dev)
+        proj = t(b, s, inner)
+        r = check_fused(
+            f"3f K8 qk_norm_rope, {label}: a projection's [{b},{s},{inner}]"
+            f" into rows {t_txt}.. of [{b},{heads},{t_txt + s},128]",
+            lambda: fused.qk_norm_rope(proj, heads, norm, rope, out=packed,
+                                       row0=t_txt)[:, :, t_txt:],
+            lambda: fused.qk_norm_rope_reference(proj, heads, norm, rope),
+            2 * heads_b + tables, 12 * e * inner)
+        ok &= r["ok"]
+        r = check_fused(
+            f"3f K8 v packing alone, {label}",
+            lambda: fused.qk_norm_rope(proj, heads, out=packed,
+                                       row0=t_txt)[:, :, t_txt:],
+            lambda: fused.qk_norm_rope_reference(proj, heads),
+            2 * heads_b, 0)
+        ok &= r["ok"] and r["max_abs_err"] == 0.0
+        # K9: [attn ‖ gelu(mlp_h)] from the split, and the GELU alone
+        attn = t(b, s, inner)
+        mlp_h = wide[..., 3 * inner:]
+        recs["gelu_pack"] = check_fused(
+            f"3f K9 gelu_pack, {label}: [{b},{s},{inner}] ‖ gelu of "
+            f"[{b},{s},{mlp}] (row stride {wide.stride(1)})",
+            lambda: fused.gelu_pack(attn, mlp_h),
+            lambda: fused.gelu_pack_reference(attn, mlp_h),
+            2 * 2 * e * (inner + mlp), 12 * e * mlp)
+        r = check_fused(
+            f"3f K9 gelu alone, {label}: [{b},{s},{mlp}]",
+            lambda: fused.gelu_pack(None, mlp_h),
+            lambda: fused.gelu_pack_reference(None, mlp_h),
+            2 * 2 * e * mlp, 12 * e * mlp,
+            library=(lambda: F.gelu(mlp_h, approximate="tanh"), "F.gelu"))
+        ok &= r["ok"] and all(rec["ok"] for rec in recs.values())
+        if label == "headline":
+            results.update({f"fused_{k}": v for k, v in recs.items()})
+        del x, y, wide, packed, proj, attn
+    if not ok:
+        fail("a fused kernel disagrees with its plain version")
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phases 4-6: the small reference, the slice, the profile
 # ---------------------------------------------------------------------------
 
@@ -857,7 +1049,7 @@ def check_edit(label, out, stats, counts, dense, shape, cache):
     """The RegionE edit's checks: finite latents of the right shape, a
     partial partition with RAGS steps, PSNR against dense, and the launch
     counts of its cache format (K2 for bf16, K2q for int8 / int4; K1 > 0,
-    K3 == 1).  Returns the PSNR."""
+    K3 == 1, each fused wrapper K7-K9 > 0).  Returns the PSNR."""
     p = psnr(dense, out)
     finite = bool(np.isfinite(dense).all() and np.isfinite(out).all())
     log(f"{label}: edited_tokens {stats.edited_tokens} capacity "
@@ -870,7 +1062,8 @@ def check_edit(label, out, stats, counts, dense, shape, cache):
                    ("attention_rows2_quant", "attention_rows2"))
     problems = []
     if not (counts["attention"] > 0 and counts[rags] > 0
-            and counts[other] == 0 and counts["fused_partition"] == 1):
+            and counts[other] == 0 and counts["fused_partition"] == 1
+            and fused_ok(counts)):
         problems.append(f"launch counts {counts}")
     if not 0 < stats.edited_tokens < stats.seq_len:
         problems.append(f"partition not partial ({stats.edited_tokens})")
@@ -1092,9 +1285,12 @@ def _kernel_group(name: str) -> str:
         return "attention K1/K2/K2q"
     if "partition_kernel" in n:
         return "partition K3"
+    if any(k in n for k in ("fused_adaln", "fused_qk_norm_rope",
+                            "fused_gelu_pack")):
+        return "fused K7/K8/K9 (AdaLN, qk-norm + RoPE, GELU pack)"
     if any(k in n for k in ("gemm", "nvjet", "cutlass", "xmma", "sm90")):
         return "GEMM (cuBLAS)"
-    return "other (norms, RoPE, elementwise, copies)"
+    return "other (eager elementwise, copies)"
 
 
 def phase_profile(name, pipe, ctx, lat0, grid, modes=(True, False)):
@@ -1236,7 +1432,7 @@ def phase_serve_latent(pipe, ctx0, grid, seeds=(110, 111, 112)):
         problems.append(f"capacity {stats[0].capacity}, bucket {want_cap}")
     if not (counts["fused_partition"] == 1 and counts["attention_rows2"] > 0
             and counts["attention"] > 0
-            and counts["attention_rows2_quant"] == 0):
+            and counts["attention_rows2_quant"] == 0 and fused_ok(counts)):
         problems.append(f"launch counts {counts}")
     if problems:
         fail("serve (a): " + "; ".join(problems))
@@ -1368,7 +1564,7 @@ def phase_serve_images(pipe, size, ref_image):
         problems.append(f"run vs pipe(): PSNR {p0:.2f}")
     if not (seq_counts["fused_partition"] == 3 and
             counts["fused_partition"] == 2 and counts["attention"] > 0 and
-            counts["attention_rows2"] > 0):
+            counts["attention_rows2"] > 0 and fused_ok(counts)):
         problems.append(f"launch counts {seq_counts}, {counts}")
     if problems:
         fail("serve (b): " + "; ".join(problems))
@@ -1506,7 +1702,7 @@ def check_image(label, out, stats, counts, shape, rags):
     other = ("attention_rows2" if rags == "attention_rows2_quant"
              else "attention_rows2_quant")
     if not (counts["attention"] > 0 and counts["fused_partition"] == 1
-            and counts[rags] > 0 and counts[other] == 0):
+            and counts[rags] > 0 and counts[other] == 0 and fused_ok(counts)):
         problems.append(f"launch counts {counts}")
     partial = 0 < stats.edited_tokens < stats.seq_len
     log(f"{label}: edited_tokens {stats.edited_tokens} capacity "
@@ -2776,9 +2972,10 @@ def phase_bench():
     128, best of 3) with the launch counts of each adaptive RegionE edit
     set to 0 just before it and read just after: its row on a line of its
     own, bench.py's keys, a partial partition with RAGS steps and the
-    plan's reuse count, latent and pixel PSNR >= 30 dB, each adaptive RegionE edit K1 > 0, K2 > 0, K2q 0 and K3
-    once; the profiles of its dense and RegionE edits; K1 and K2 at its
-    shapes.  Then `profile_steps` at the same shapes, `serve_batch` (B 2,
+    plan's reuse count, latent and pixel PSNR >= 30 dB, each adaptive
+    RegionE edit K1 > 0, K2 > 0, K2q 0, K3 once and K7-K9 > 0; the
+    profiles of its dense and RegionE edits; K1 and K2 at its shapes.
+    Then `profile_steps` at the same shapes, `serve_batch` (B 2,
     one run: K2q > 0, batched against single >= SERVE_PSNR_MIN), `fullsize
     --preset step1x-edit` at full width with the grid cut to 32, one run,
     and one `graft_entry.entry()` step.  Returns (the launch counts of the
@@ -2807,7 +3004,8 @@ def phase_bench():
         problems.append("headline PSNR")
     if any(not (c["attention"] > 0 and c["attention_rows2"] > 0
                 and c["attention_rows2_quant"] == 0
-                and c["fused_partition"] == 1) for c in launches):
+                and c["fused_partition"] == 1 and fused_ok(c))
+           for c in launches):
         problems.append(f"headline launches {launches}")
     phase_profile("12 headline", w.pipe, w.ctx, w.lat0, g)
     rng = np.random.default_rng(12)
@@ -3385,7 +3583,8 @@ def phase_sharded(qwen_grid=64, step1x_grid=32):
         if shapes["dk"][1:3] != (2, scfg.heads // 2) or \
                 cache_bytes * 4 != whole_cache:
             problems.append(f"11b rank {r}: cache {shapes} {cache_bytes}")
-        if counts["fused_partition"] != 1 or counts["attention_rows2"] < 1:
+        if counts["fused_partition"] != 1 or counts["attention_rows2"] < 1 \
+                or not fused_ok(counts):
             problems.append(f"11b rank {r}: launches {counts}")
         for label in ("qwen", "qwen_int4", "step1x"):
             have, plan, read = res[label + "_bytes"]
@@ -3408,9 +3607,9 @@ def phase_sharded(qwen_grid=64, step1x_grid=32):
 
 
 def qwen_launches_ok(name, counts) -> bool:
-    """A sharded Qwen edit's launches: K1 always; a RegionE edit K3 once
-    and K2q (its cache is quantized) but no K2."""
-    if counts["attention"] <= 0:
+    """A sharded Qwen edit's launches: K1 and K7-K9 always; a RegionE
+    edit K3 once and K2q (its cache is quantized) but no K2."""
+    if counts["attention"] <= 0 or not fused_ok(counts):
         return False
     if name == "qwen_dense":
         return counts["fused_partition"] == 0
@@ -3422,6 +3621,12 @@ def qwen_launches_ok(name, counts) -> bool:
 
 SRC = "regione_tpu_torch/csrc/attention_tma.cu"
 JAX_FA = "regione_tpu/ops/flash_attention.py"
+FUSED_SRC = "regione_tpu_torch/csrc/fused_block.cu"
+# K7-K9 replace no Pallas kernel: XLA's fusions of these chains inside the
+# jitted sampler phases
+FUSED_REPLACES = ("regione_tpu/core/sampler.py:140 (XLA fusion of "
+                  "regione_tpu/models/mmdit.py:140-143, 171-172, 202-208, "
+                  "238, 260-264, 286, 558)")
 # record key -> (name, source, TPU kernel replaced, the path whose launch
 # count the record carries, the counter)
 KERNELS = {
@@ -3473,6 +3678,27 @@ KERNELS = {
                   "per-rank shape (12 heads, 128 + 384 rows over 2048): "
                   "launches per rank of 11b", SRC, f"{JAX_FA}:357",
                   "sharded_step1x", "attention_rows2"),
+    "fused_adaln": ("K7 adaln (AdaLN), headline shape [2,8320,1536]: "
+                    "launches per headline RegionE edit", FUSED_SRC,
+                    FUSED_REPLACES, "headline_edit", "adaln"),
+    "fused_residual_adaln": ("K7 residual_adaln (gated residual + AdaLN), "
+                             "headline shape: launches per headline "
+                             "RegionE edit", FUSED_SRC, FUSED_REPLACES,
+                             "headline_edit", "residual_adaln"),
+    "fused_gated_residual": ("K7 gated_residual (residual-only mode), "
+                             "headline shape: launches per headline "
+                             "RegionE edit", FUSED_SRC, FUSED_REPLACES,
+                             "headline_edit", "gated_residual"),
+    "fused_qk_norm_rope": ("K8 qk_norm_rope (qk-RMSNorm + RoPE + head "
+                           "packing; v's packing counted too), q of the "
+                           "headline single block's linear1 split: "
+                           "launches per headline RegionE edit", FUSED_SRC,
+                           FUSED_REPLACES, "headline_edit", "qk_norm_rope"),
+    "fused_gelu_pack": ("K9 gelu_pack ([attn ‖ gelu_tanh(mlp_h)]; the "
+                        "double block's GELU-only mode counted too), "
+                        "headline single block: launches per headline "
+                        "RegionE edit", FUSED_SRC, FUSED_REPLACES,
+                        "headline_edit", "gelu_pack"),
 }
 RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "library")
@@ -3489,6 +3715,10 @@ def main():
     grid, qwen_grid = 32, 64
     checks = phase_kernels(grid, qwen_grid)
     log(f"phase kernels done in {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    checks.update(phase_fused())
+    log(f"phase 3f (the fused block kernels K7-K9) done in "
+        f"{time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     paths = phase_small_reference()
     log(f"phase small reference done in {time.perf_counter() - t:.1f}s")

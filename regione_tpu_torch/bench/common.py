@@ -220,23 +220,33 @@ def psnr(a, b) -> float:
 def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     from regione_tpu_torch.ops import flash_attention as fa
+    from regione_tpu_torch.ops import fused
     from regione_tpu_torch.ops import partition_kernel as pk
     fa.reset_launches()
+    fused.reset_launches()
     pk.fused_partition.launches = 0
 
 
 def read_counts() -> dict:
     """Every kernel wrapper's launch count (K1 `attention`, K5
     `attention_long`, K2 `attention_rows2`, K2q `attention_rows2_quant`,
-    K6 `attention_quant`, K3 `fused_partition`)."""
+    K6 `attention_quant`, K3 `fused_partition`, K7 `adaln`,
+    `residual_adaln`, `gated_residual`, K8 `qk_norm_rope`, K9
+    `gelu_pack`)."""
     from regione_tpu_torch.ops import flash_attention as fa
+    from regione_tpu_torch.ops import fused
     from regione_tpu_torch.ops import partition_kernel as pk
     return {"attention": fa.attention.launches,
             "attention_long": fa.attention.long_launches,
             "attention_rows2": fa.attention_rows2.launches,
             "attention_rows2_quant": fa.attention_rows2_quant.launches,
             "attention_quant": fa.attention_quant.launches,
-            "fused_partition": pk.fused_partition.launches}
+            "fused_partition": pk.fused_partition.launches,
+            "adaln": fused.adaln.launches,
+            "residual_adaln": fused.residual_adaln.launches,
+            "gated_residual": fused.gated_residual.launches,
+            "qk_norm_rope": fused.qk_norm_rope.launches,
+            "gelu_pack": fused.gelu_pack.launches}
 
 
 def spawn_ranks(code: str, args, n: int, limit: float, label: str,

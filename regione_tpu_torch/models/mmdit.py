@@ -22,6 +22,10 @@ head-major [L, B, H, S, dh] over the image rows ([noise ‖ condition]) only:
 in the model dtype, or quantized (`cache_int8`, `cache_int4`: `ops.quant`
 rows plus fp32 row-scale leaves "dk_s" ... of [L, B, H, S]; int4 keeps S/2
 packed rows), which RAGS steps read through kernel K2q.
+The blocks' elementwise chains (AdaLN, the gated residuals, qk-RMSNorm +
+RoPE with the head-major packing, GELU) run through `ops.fused`, kernels
+K7-K9 on the card; the double block's q / k / v are written straight
+into one buffer over [txt ‖ img] rows each, with no concatenation.
 The depth runs as a Python loop over `nn.ModuleList`s; linear1 of the single
 blocks is one matmul, quantized or not (the JAX package's deferred-MLP split
 was an XLA rematerialisation fix with the same math, and its `_slice_out`
@@ -44,14 +48,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from regione_tpu_torch.models.connector import Connector, ConnectorConfig
+from regione_tpu_torch.ops.fused import (adaln, gated_residual, gelu_pack,
+                                         qk_norm_rope, residual_adaln)
 from regione_tpu_torch.ops.quant import quantize_kv_heads, quantize_kv_heads4
 from regione_tpu_torch.models.layers import (
     MLP,
     Scale,
     act_int8,
-    apply_rope,
     concat_rope,
-    layernorm,
     make_linear,
     mlp_embed,
     mlp_embed_module,
@@ -129,17 +133,13 @@ def _modulation(lin: nn.Linear, temb_act, n: int):
     return lin(temb_act)[:, None, :].chunk(n, dim=-1)
 
 
-def _gelu(x):
-    return F.gelu(x, approximate="tanh")
-
-
 class Attention(nn.Module):
     """One stream's q/k/v/out projections and qk-RMSNorm scales."""
 
     def __init__(self, d_model: int, cfg: MMDiTConfig, device):
         super().__init__()
         dt, inner = cfg.dtype, cfg.inner
-        self.heads = cfg.heads
+        self.heads, self.head_dim = cfg.heads, cfg.head_dim
         self.q = make_linear(d_model, inner, device, dt)
         self.k = make_linear(d_model, inner, device, dt)
         self.v = make_linear(d_model, inner, device, dt)
@@ -147,13 +147,16 @@ class Attention(nn.Module):
         self.norm_q = Scale(cfg.head_dim, device, dt)
         self.norm_k = Scale(cfg.head_dim, device, dt)
 
-    def qkv(self, x, rope):
-        """q, k, v heads [B, H, S, dh] with qk-RMSNorm and RoPE applied."""
+    def qkv(self, x, rope, out, row0: int):
+        """This stream's q, k, v heads, qk-RMSNorm and RoPE applied to q
+        and k (kernel K8), written into the head-major buffers `out`
+        (q, k, v) [B, H, S_total, dh] at rows row0 .. row0 + S."""
         q, k, v = project_rows(x, (self.q, self.k, self.v))
-        q = rmsnorm(split_heads(q, self.heads), self.norm_q.scale)
-        k = rmsnorm(split_heads(k, self.heads), self.norm_k.scale)
-        v = split_heads(v, self.heads)
-        return apply_rope(q, rope), apply_rope(k, rope), v
+        qk_norm_rope(q, self.heads, self.norm_q.scale, rope, out=out[0],
+                     row0=row0)
+        qk_norm_rope(k, self.heads, self.norm_k.scale, rope, out=out[1],
+                     row0=row0)
+        qk_norm_rope(v, self.heads, out=out[2], row0=row0)   # packing alone
 
 
 class DoubleBlock(nn.Module):
@@ -178,31 +181,35 @@ class DoubleBlock(nn.Module):
         (t_shift1, t_scale1, t_gate1,
          t_shift2, t_scale2, t_gate2) = _modulation(self.txt_mod, temb_act, 6)
 
-        img_n = layernorm(img) * (1 + i_scale1) + i_shift1
-        txt_n = layernorm(txt) * (1 + t_scale1) + t_shift1
-        q_i, k_i, v_i = self.img_attn.qkv(img_n, rope_img)
-        q_t, k_t, v_t = self.txt_attn.qkv(txt_n, rope_txt)
-        q = torch.cat([q_t, q_i], dim=2)
-        k = torch.cat([k_t, k_i], dim=2)
-        v = torch.cat([v_t, v_i], dim=2)
+        img_n = adaln(img, i_shift1, i_scale1)
+        txt_n = adaln(txt, t_shift1, t_scale1)
+        # q, k, v over [txt ‖ img] rows: each stream writes its rows
+        t_len = txt.shape[1]
+        shape = (img.shape[0], self.img_attn.heads, t_len + img.shape[1],
+                 self.img_attn.head_dim)
+        q, k, v = (img.new_empty(shape) for _ in range(3))
+        self.txt_attn.qkv(txt_n, rope_txt, (q, k, v), 0)
+        self.img_attn.qkv(img_n, rope_img, (q, k, v), t_len)
 
         new_kv = None
         if mode == MODE_RAGS:
             attn = sdpa_cached(q, (k, v), cache_k, cache_v, bias=bias)
         else:
             if mode == MODE_WRITE:
-                new_kv = (k_i, v_i)
+                new_kv = (k[:, :, t_len:], v[:, :, t_len:])
             attn = sdpa(q, k, v, bias=bias)
 
-        t_len = txt.shape[1]
         attn_txt, attn_img = attn[:, :t_len], attn[:, t_len:]
-        img = img + i_gate1 * self.img_attn.out(attn_img)
-        txt = txt + t_gate1 * self.txt_attn.out(attn_txt)
-
-        img_n2 = layernorm(img) * (1 + i_scale2) + i_shift2
-        img = img + i_gate2 * self.img_mlp.out(_gelu(self.img_mlp.in_(img_n2)))
-        txt_n2 = layernorm(txt) * (1 + t_scale2) + t_shift2
-        txt = txt + t_gate2 * self.txt_mlp.out(_gelu(self.txt_mlp.in_(txt_n2)))
+        img, img_n2 = residual_adaln(img, i_gate1,
+                                     self.img_attn.out(attn_img), i_shift2,
+                                     i_scale2)
+        txt, txt_n2 = residual_adaln(txt, t_gate1,
+                                     self.txt_attn.out(attn_txt), t_shift2,
+                                     t_scale2)
+        img = gated_residual(img, i_gate2, self.img_mlp.out(
+            gelu_pack(None, self.img_mlp.in_(img_n2))))
+        txt = gated_residual(txt, t_gate2, self.txt_mlp.out(
+            gelu_pack(None, self.txt_mlp.in_(txt_n2))))
         return img, txt, new_kv
 
 
@@ -227,15 +234,13 @@ class SingleBlock(nn.Module):
         """Returns (x, (k_img, v_img) in write mode else None); the image
         rows of the stream start at `t_txt`."""
         shift, scale, gate = _modulation(self.mod, temb_act, 3)
-        x_n = layernorm(x) * (1 + scale) + shift
+        x_n = adaln(x, shift, scale)
         inner = self.inner
         q, k, v, mlp_h = self.linear1(x_n).split(
             [inner, inner, inner, self.mlp_hidden], dim=-1)
-        q = apply_rope(rmsnorm(split_heads(q, self.heads), self.norm_q.scale),
-                       rope)
-        k = apply_rope(rmsnorm(split_heads(k, self.heads), self.norm_k.scale),
-                       rope)
-        v = split_heads(v, self.heads)
+        q = qk_norm_rope(q, self.heads, self.norm_q.scale, rope)
+        k = qk_norm_rope(k, self.heads, self.norm_k.scale, rope)
+        v = split_heads(v, self.heads)      # attention reads the view
 
         new_kv = None
         if mode == MODE_RAGS:
@@ -244,8 +249,8 @@ class SingleBlock(nn.Module):
             if mode == MODE_WRITE:
                 new_kv = (k[:, :, t_txt:], v[:, :, t_txt:])
             attn = sdpa(q, k, v, bias=bias)
-        out = self.linear2(torch.cat([attn, _gelu(mlp_h)], dim=-1))
-        return x + gate * out, new_kv
+        out = self.linear2(gelu_pack(attn, mlp_h))
+        return gated_residual(x, gate, out), new_kv
 
 
 # ---------------------------------------------------------------------------
@@ -435,5 +440,4 @@ class MMDiT(nn.Module):
             x = stream[:, t_txt:]
 
         shift, scale = _modulation(self.final_mod, temb_act, 2)
-        x = layernorm(x) * (1 + scale) + shift
-        return self.final_proj(x), cache
+        return self.final_proj(adaln(x, shift, scale)), cache

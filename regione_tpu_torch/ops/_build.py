@@ -41,6 +41,9 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "regione_attention_tma_fwd": [_P] * 10 + [_I] * 6 + [_F, _P],
     "regione_partition_fwd": [_P, _P, _F, _I, _I, _I, _I, _I, _L, _P, _P],
+    "regione_adaln_fwd": [_P] * 8 + [_I] * 3 + [_P],
+    "regione_qk_norm_rope_fwd": [_P] * 6 + [_I] * 3 + [_P],
+    "regione_gelu_pack_fwd": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

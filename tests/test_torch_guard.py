@@ -14,7 +14,8 @@
   * the kernel modules import with no triton and no nvcc;
   * CPU tensors take the plain path (no launch is counted), and a device
     with no kernel raises instead of falling back, for every wrapper (the
-    quantized-cache ones included);
+    quantized-cache ones and the fused block kernels included); a fused
+    kernel's call on the kernel path with no library to load raises too;
   * the kernels' library is named by a hash of the sources, so an edit
     rebuilds; each source compiles in its own nvcc process, then one link
     (a fake nvcc records the commands); the C signatures the loader binds
@@ -200,6 +201,63 @@ def test_no_fallback_on_a_device_without_kernels():
         x = torch.empty(shape, device="meta")
         with pytest.raises(ValueError, match="no partition kernel"):
             pk.fused_partition(x, x, 0.0, 4, 4)
+
+
+def _fused_calls(dtype=torch.bfloat16, device="cpu"):
+    """One call of each fused-kernel wrapper (`ops.fused`) on valid
+    shapes."""
+    from regione_tpu_torch.ops import fused
+    x = torch.zeros(1, 3, 256, dtype=dtype, device=device)
+    m = torch.zeros(1, 1, 256, dtype=dtype, device=device)
+    scale = torch.ones(128, dtype=dtype, device=device)
+    return (lambda: fused.adaln(x, m, m),
+            lambda: fused.residual_adaln(x, m, x, m, m),
+            lambda: fused.gated_residual(x, m, x),
+            lambda: fused.qk_norm_rope(x, 2, scale),
+            lambda: fused.gelu_pack(x, x))
+
+
+def _fused_counts():
+    from regione_tpu_torch.ops import fused
+    return (fused.adaln.launches, fused.residual_adaln.launches,
+            fused.gated_residual.launches, fused.qk_norm_rope.launches,
+            fused.gelu_pack.launches)
+
+
+def test_fused_kernels_never_fall_back(monkeypatch, tmp_path):
+    """A device with no kernel raises; on the kernel path (a CUDA tensor,
+    stood in for by patching `_kernel_device`) a wrong dtype raises before
+    any build, and with no nvcc to build the library the call raises
+    instead of computing the plain version.  No launch is counted."""
+    from regione_tpu_torch.ops import fused
+    fused.reset_launches()
+    for call in _fused_calls(device="meta"):
+        with pytest.raises(ValueError, match="no .* kernel for device meta"):
+            call()
+    monkeypatch.setattr(fused, "_kernel_device", lambda x, what: True)
+    for call in _fused_calls(dtype=torch.float32):
+        with pytest.raises(TypeError, match="the kernel takes"):
+            call()
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
+    for call in _fused_calls():
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+    assert _fused_counts() == (0,) * 5
+
+
+def test_fused_entries_are_bound():
+    """The fused kernels' three C entries are bound by the loader and
+    defined in csrc/fused_block.cu."""
+    src = (_build.CSRC / "fused_block.cu").read_text()
+    for name in ("regione_adaln_fwd", "regione_qk_norm_rope_fwd",
+                 "regione_gelu_pack_fwd"):
+        assert name in _build._SIGNATURES
+        assert f'extern "C" int {name}(' in src
 
 
 def test_missing_nvcc_is_a_clear_error(monkeypatch, tmp_path):
