@@ -1,0 +1,24 @@
+"""pipeline.rags_host_ms: the mean host time of one `pipeline.rags_forward`
+span of the program (its enqueue of a RAGS forward over the edited rows;
+the span adds no sync), over the traced edits, from the spans the port
+records while the profiler runs (`regione_tpu_torch.utils.telemetry`).
+It reads the host's cost where the host paces the RAGS forwards (the
+512^2 cell).  In the 1024^2 cells the RAGS forwards queue behind the
+refresh forwards, so there it also holds the host's waits for room in
+the launch queue, and falls when the device gets faster.  None where the
+program records no spans, or records another number of `pipeline.edit`
+spans than the run has edits."""
+
+
+def read(run):
+    try:
+        from regione_tpu_torch.utils import telemetry
+    except ImportError:
+        return None
+    if not run.edits or not hasattr(telemetry, "spans"):
+        return None
+    spans = telemetry.spans()
+    if sum(s.name == "pipeline.edit" for s in spans) != len(run.edits):
+        return None
+    ms = [s.host_ms for s in spans if s.name == "pipeline.rags_forward"]
+    return sum(ms) / len(ms) if ms else None

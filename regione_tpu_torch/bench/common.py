@@ -218,13 +218,13 @@ def psnr(a, b) -> float:
 
 
 def reset_counts() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count and host times to 0."""
     from regione_tpu_torch.ops import flash_attention as fa
-    from regione_tpu_torch.ops import fused
-    from regione_tpu_torch.ops import partition_kernel as pk
-    fa.reset_launches()
-    fused.reset_launches()
-    pk.fused_partition.launches = 0
+    from regione_tpu_torch.ops import fused  # noqa: F401 (registers)
+    from regione_tpu_torch.ops import partition_kernel  # noqa: F401
+    from regione_tpu_torch.utils import telemetry
+    telemetry.reset_counters()
+    fa.attention.long_launches = 0
 
 
 def read_counts() -> dict:

@@ -14,6 +14,10 @@ step before the loop starts; the four segments run eagerly:
      multiply-add (lat += avd * sum(dt_i * ratio_i)), with no model call;
   4. `_sms`: the trailing dense smooth steps.
 
+Each segment is a span of `utils.telemetry` (`sampler.warm`,
+`sampler.partition`, `sampler.rest`, `sampler.sms`, with CUDA events on a
+card), and so is the host sync (`sampler.sync`, the host's wait alone).
+
 Latents stay full-length [B, S_noise, C] fp32; the RAGS phase gathers them
 to a fixed capacity with sentinel-padded ids (core.masking), and padded rows
 are re-zeroed every step.
@@ -39,7 +43,6 @@ shares one capacity bucket, as the unsharded group does.
 from __future__ import annotations
 
 import dataclasses
-import time
 import warnings
 from typing import Any, Callable
 
@@ -56,19 +59,22 @@ from regione_tpu_torch.core import masking
 from regione_tpu_torch.core.partition import (select_edited_mask,
                                               select_edited_masks)
 from regione_tpu_torch.parallel.sharding import dp_all_gather, tp_broadcast
+from regione_tpu_torch.utils import telemetry
 
 
 @dataclasses.dataclass
 class SampleStats:
-    """Per-image observability."""
+    """Per-image observability.  `sts_s` and `rest_s` stay 0.0: the
+    fields keep the struct equal to the JAX package's, which times its
+    segments there; the port's segments are `utils.telemetry` spans."""
     edited_tokens: int
     capacity: int
     seq_len: int
     reuse_steps: int
     dense_steps: int
     rags_steps: int
-    sts_s: float = 0.0    # wall time of the STS + partition segment (timed)
-    rest_s: float = 0.0   # wall time of the RAGS/refresh/SMS segment
+    sts_s: float = 0.0
+    rest_s: float = 0.0
 
 
 class RegionESampler:
@@ -92,14 +98,12 @@ class RegionESampler:
 
     @torch.inference_mode()
     def sample(self, latents0, cond_latent, ctx, forced_mask=None,
-               timed: bool = False, mesh=None):
+               mesh=None):
         """Run the accelerated denoise.  latents0/cond_latent:
         [B, S_noise, C].  `forced_mask` [S] overrides the adaptive
-        partition; `timed` records per-segment wall time (one extra sync);
-        `mesh`: the (dp, tp) mesh of a sharded model.
+        partition; `mesh`: the (dp, tp) mesh of a sharded model.
         Returns (final latents fp32, stats)."""
         s_noise = latents0.shape[1]
-        t0 = time.perf_counter()
         if self.re.warmup_step > 1:
             lat = self._warm(latents0, ctx)
         else:
@@ -109,8 +113,9 @@ class RegionESampler:
                                                   forced_mask, mesh=mesh)
         # THE one host sync: the edited count picks the capacity bucket;
         # the id set itself stays on the device
-        n_edit = int(mask.sum())
-        sts_s = time.perf_counter() - t0
+        with telemetry.span("sampler.sync") as sp:
+            n_edit = int(mask.sum())
+            sp.set(edited=n_edit)
         cap = self.re.rags_capacity or pick_capacity(
             n_edit, s_noise, self.re.capacity_granularity)
         if n_edit > cap:
@@ -128,20 +133,14 @@ class RegionESampler:
             ids_cap = ids
         else:
             ids_cap = ids_sorted[:cap]
-        t1 = time.perf_counter()
         lat, _ = self._rest(lat, ids_cap, mask, cache, ctx)
         if self._sms_steps:
             lat = self._sms(lat, ctx)
-        rest_s = 0.0
-        if timed:
-            float(lat.sum())  # completion barrier
-            rest_s = time.perf_counter() - t1
         stats = SampleStats(
             edited_tokens=n_edit, capacity=cap, seq_len=s_noise,
             reuse_steps=sum(sp.reuse for sp in self.plan),
             dense_steps=sum(sp.dense for sp in self.plan),
-            rags_steps=sum(not sp.dense for sp in self.plan),
-            sts_s=sts_s if timed else 0.0, rest_s=rest_s)
+            rags_steps=sum(not sp.dense for sp in self.plan))
         return lat, stats
 
     @torch.inference_mode()
@@ -172,7 +171,9 @@ class RegionESampler:
         top = counts.max()[None]
         if mesh is not None:
             top = dp_all_gather(mesh, top).max()
-        counts = counts.tolist()         # THE one host sync: B counts
+        with telemetry.span("sampler.sync") as sp:
+            counts = counts.tolist()     # THE one host sync: B counts
+            sp.set(edited=counts)
         cap = self.re.rags_capacity or pick_capacity(
             int(top), s_noise, self.re.capacity_granularity)
         # each row: its edited ids ascending, then ids _rest pads with the
@@ -205,8 +206,10 @@ class RegionESampler:
         return lat
 
     def _warm(self, latents, ctx):
-        return self._dense_steps(latents.float(),
-                                 self.plan[: self.re.warmup_step - 1], ctx)
+        steps = self.plan[: self.re.warmup_step - 1]
+        with telemetry.span("sampler.warm", events_on=latents,
+                            steps=len(steps)):
+            return self._dense_steps(latents.float(), steps, ctx)
 
     def _part(self, latents, cond_latent, ctx, forced_mask=None,
               per_image=False, mesh=None):
@@ -214,6 +217,12 @@ class RegionESampler:
         ([S]; per_image: [B, S], one per image; on a mesh tp rank 0's), and
         the edited/unedited split step.  Returns the masks' edited-first id
         orders beside."""
+        with telemetry.span("sampler.partition", events_on=latents, steps=1):
+            return self._part_step(latents, cond_latent, ctx, forced_mask,
+                                   per_image, mesh)
+
+    def _part_step(self, latents, cond_latent, ctx, forced_mask, per_image,
+                   mesh):
         part = self.plan[self.re.warmup_step - 1]
         assert part.sched_role == SCHED_PARTITION
         lat = latents.float()
@@ -269,6 +278,12 @@ class RegionESampler:
         return self._segments[1]
 
     def _rest(self, lat, ids, mask, cache, ctx):
+        segs, _ = self._segments
+        with telemetry.span("sampler.rest", events_on=lat,
+                            steps=sum(len(steps) for _, steps in segs)):
+            return self._rest_steps(lat, ids, mask, cache, ctx)
+
+    def _rest_steps(self, lat, ids, mask, cache, ctx):
         s_noise = lat.shape[1]
         # sentinel-pad on the device: slots past the edited count become
         # s_noise (an identity for host-built, already padded id sets); ids
@@ -308,7 +323,9 @@ class RegionESampler:
         return lat, cache
 
     def _sms(self, lat, ctx):
-        return self._dense_steps(lat, self._sms_steps, ctx)
+        with telemetry.span("sampler.sms", events_on=lat,
+                            steps=len(self._sms_steps)):
+            return self._dense_steps(lat, self._sms_steps, ctx)
 
     def _rags_runs(self, lat_act, avd_act, cache, ids, valid, steps, ctx):
         """A RAGS segment split at the (statically known) AVD reuse runs:

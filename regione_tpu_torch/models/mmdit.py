@@ -51,6 +51,7 @@ from regione_tpu_torch.models.connector import Connector, ConnectorConfig
 from regione_tpu_torch.ops.fused import (adaln, gated_residual, gelu_pack,
                                          qk_norm_rope, residual_adaln)
 from regione_tpu_torch.ops.quant import quantize_kv_heads, quantize_kv_heads4
+from regione_tpu_torch.utils import telemetry
 from regione_tpu_torch.models.layers import (
     MLP,
     Scale,
@@ -382,10 +383,58 @@ class MMDiT(nn.Module):
 
     def _forward(self, img, txt, t, rope_img, rope_txt, pooled, guidance, *,
                  mode, cache, sel_img_ids, txt_bias):
-        cfg, dt = self.cfg, self.cfg.dtype
+        """`forward`, in host-only `utils.telemetry` spans: `model.embed`,
+        `model.double_block` / `model.single_block` (attr `index`) and
+        `model.final`."""
+        cfg = self.cfg
         if mode == MODE_WRITE and cache is None:
             cache = init_cache(cfg, img.shape[0], img.shape[1], img.device,
                                self.tp_size)
+        with telemetry.span("model.embed"):
+            x, txt_h, temb_act = self._embed(img, txt, t, pooled, guidance,
+                                             txt_bias)
+        t_txt = txt_h.shape[1]
+
+        bias = txt_bias
+        if mode == MODE_RAGS:
+            # the cached row count: read off the scales under a quantized
+            # cache (an int4 rows leaf holds S/2 packed rows)
+            s_kv = cache["dk_s" if cfg.cache_quant else "dk"].shape[3]
+            bias = rags_bias(sel_img_ids, s_kv, t_txt, x.shape[0], txt_bias)
+
+        rags = mode == MODE_RAGS
+        for i, blk in enumerate(self.double_blocks):
+            with telemetry.span("model.double_block", index=i):
+                ck = _layer_kv(cache, "dk", i) if rags else None
+                cv = _layer_kv(cache, "dv", i) if rags else None
+                x, txt_h, kv = blk(x, txt_h, temb_act, rope_img, rope_txt,
+                                   mode, ck, cv, bias)
+                if kv is not None:
+                    _store_kv(cfg, cache, "dk", i, kv[0])
+                    _store_kv(cfg, cache, "dv", i, kv[1])
+
+        if cfg.depth_single:
+            stream = torch.cat([txt_h, x], dim=1)
+            rope_stream = concat_rope(rope_txt, rope_img)
+            for i, blk in enumerate(self.single_blocks):
+                with telemetry.span("model.single_block", index=i):
+                    ck = _layer_kv(cache, "sk", i) if rags else None
+                    cv = _layer_kv(cache, "sv", i) if rags else None
+                    stream, kv = blk(stream, temb_act, rope_stream, mode, ck,
+                                     cv, bias, t_txt=t_txt)
+                    if kv is not None:
+                        _store_kv(cfg, cache, "sk", i, kv[0])
+                        _store_kv(cfg, cache, "sv", i, kv[1])
+            x = stream[:, t_txt:]
+
+        with telemetry.span("model.final"):
+            shift, scale = _modulation(self.final_mod, temb_act, 2)
+            return self.final_proj(adaln(x, shift, scale)), cache
+
+    def _embed(self, img, txt, t, pooled, guidance, txt_bias):
+        """The image, time, guidance and text embeds and the connector:
+        (x, txt_h, silu(temb))."""
+        cfg, dt = self.cfg, self.cfg.dtype
         x = self.x_embedder(img.to(dt))
         temb = mlp_embed(self.time_in,
                          timestep_embedding(t, cfg.time_embed_dim).to(dt))
@@ -406,38 +455,4 @@ class MMDiT(nn.Module):
         temb_act = F.silu(temb)
         if cfg.txt_norm:
             txt_in = rmsnorm(txt_in, self.txt_norm.scale)
-        txt_h = self.txt_in(txt_in)
-        t_txt = txt_h.shape[1]
-
-        bias = txt_bias
-        if mode == MODE_RAGS:
-            # the cached row count: read off the scales under a quantized
-            # cache (an int4 rows leaf holds S/2 packed rows)
-            s_kv = cache["dk_s" if cfg.cache_quant else "dk"].shape[3]
-            bias = rags_bias(sel_img_ids, s_kv, t_txt, x.shape[0], txt_bias)
-
-        rags = mode == MODE_RAGS
-        for i, blk in enumerate(self.double_blocks):
-            ck = _layer_kv(cache, "dk", i) if rags else None
-            cv = _layer_kv(cache, "dv", i) if rags else None
-            x, txt_h, kv = blk(x, txt_h, temb_act, rope_img, rope_txt, mode,
-                               ck, cv, bias)
-            if kv is not None:
-                _store_kv(cfg, cache, "dk", i, kv[0])
-                _store_kv(cfg, cache, "dv", i, kv[1])
-
-        if cfg.depth_single:
-            stream = torch.cat([txt_h, x], dim=1)
-            rope_stream = concat_rope(rope_txt, rope_img)
-            for i, blk in enumerate(self.single_blocks):
-                ck = _layer_kv(cache, "sk", i) if rags else None
-                cv = _layer_kv(cache, "sv", i) if rags else None
-                stream, kv = blk(stream, temb_act, rope_stream, mode, ck, cv,
-                                 bias, t_txt=t_txt)
-                if kv is not None:
-                    _store_kv(cfg, cache, "sk", i, kv[0])
-                    _store_kv(cfg, cache, "sv", i, kv[1])
-            x = stream[:, t_txt:]
-
-        shift, scale = _modulation(self.final_mod, temb_act, 2)
-        return self.final_proj(adaln(x, shift, scale)), cache
+        return x, self.txt_in(txt_in), temb_act

@@ -43,7 +43,9 @@ dequantized K/V are bit-equal in both.
 Launch counters: `attention.launches` (every K1 launch) and
 `attention.long_launches` (those past `RESIDENT_KEYS`, the K5 regime),
 `attention_rows2.launches` (K2), `attention_rows2_quant.launches` (K2q),
-`attention_quant.launches` (K6).
+`attention_quant.launches` (K6); beside each `.launches`, summed while
+`utils.telemetry` records, `.host_ns` (the wrapper's host time up to its
+launch call) and `.launch_ns` (the launch call).
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ import math
 import torch
 
 from regione_tpu_torch.ops.quant import dequantize_cache
+from regione_tpu_torch.utils import telemetry
 
 HEAD_DIM = 128
 # the JAX package's resident budget at its default block_q = 128
@@ -149,9 +152,12 @@ def _check_quant(q, k, v, k_scale, v_scale):
         "int4 S-halves packing (rows == S / 2, S even)")
 
 
-def _launch(q, k1, v1, k2, v2, bias, k_scale=None, v_scale=None):
+def _launch(q, k1, v1, k2, v2, bias, k_scale=None, v_scale=None,
+            counter=None, t0=0):
     """One launch over [k1/v1 rows ‖ k2/v2 rows]; either may be None.
-    With scales, k2/v2 are a quantized cache (int8 or packed int4)."""
+    With scales, k2/v2 are a quantized cache (int8 or packed int4).  Its
+    host times go to `counter`'s `host_ns` (from `t0`, `telemetry.clock()`
+    at the wrapper's entry) and `launch_ns`."""
     from regione_tpu_torch.ops import _build
     b, h, t, d = q.shape
     if d != HEAD_DIM:
@@ -196,6 +202,7 @@ def _launch(q, k1, v1, k2, v2, bias, k_scale=None, v_scale=None):
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        t_call = telemetry.lap(counter, t0)
         code = lib.regione_attention_tma_fwd(
             q.data_ptr(), k1_.data_ptr(), v1_.data_ptr(), k2_.data_ptr(),
             v2_.data_ptr(), *(sc.data_ptr() if sc is not None else None
@@ -203,6 +210,7 @@ def _launch(q, k1, v1, k2, v2, bias, k_scale=None, v_scale=None):
             bias.data_ptr() if bias is not None else None,
             out.data_ptr(), strides, b, h, t, s1, s2, mode,
             1.0 / math.sqrt(d), stream)
+    telemetry.lap(counter, t_call, "launch_ns")
     _build.check(code, "regione_attention_tma_fwd")
     return out
 
@@ -221,11 +229,12 @@ def attention(q, k, v, bias=None, k_scale=None, v_scale=None):
     """K1/K5: q [B, H, T, D], k/v [B, H, S, D], bias [B, S] fp32 or None
     -> [B, T, H*D].  With scales, k/v are quantized: `attention_quant`
     (K6).  CPU: plain version.  CUDA: the kernel, or raises."""
+    t0 = telemetry.clock()
     if k_scale is not None:
         return attention_quant(q, k, v, k_scale, v_scale, bias)
     if not _kernel_device(q):
         return attention_reference(q, k, v, bias)
-    out = _launch(q, k, v, None, None, bias)
+    out = _launch(q, k, v, None, None, bias, counter=attention, t0=t0)
     attention.launches += 1
     if k.shape[2] > RESIDENT_KEYS:
         attention.long_launches += 1
@@ -239,12 +248,13 @@ def attention_rows2(q, k1, v1, k2, v2, bias=None, k_scale=None,
     [B, S1 + S2] fp32 or None -> [B, T, H*D].  With scales, the cache is
     quantized: `attention_rows2_quant` (K2q).  CPU: plain version.  CUDA:
     the kernel, or raises."""
+    t0 = telemetry.clock()
     if k_scale is not None:
         return attention_rows2_quant(q, k1, v1, k2, v2, k_scale, v_scale,
                                      bias)
     if not _kernel_device(q):
         return attention_rows2_reference(q, k1, v1, k2, v2, bias)
-    out = _launch(q, k1, v1, k2, v2, bias)
+    out = _launch(q, k1, v1, k2, v2, bias, counter=attention_rows2, t0=t0)
     attention_rows2.launches += 1
     return out
 
@@ -252,10 +262,12 @@ def attention_rows2(q, k1, v1, k2, v2, bias=None, k_scale=None,
 def attention_rows2_quant(q, k1, v1, k2, v2, k_scale, v_scale, bias=None):
     """K2q: K2 with the cache as int8 rows [B, H, S, D] or packed int4 rows
     [B, H, S/2, D] and fp32 row scales [B, H, S]; bias [B, S1 + S]."""
+    t0 = telemetry.clock()
     if not _kernel_device(q):
         return attention_rows2_quant_reference(q, k1, v1, k2, v2, k_scale,
                                                v_scale, bias)
-    out = _launch(q, k1, v1, k2, v2, bias, k_scale, v_scale)
+    out = _launch(q, k1, v1, k2, v2, bias, k_scale, v_scale,
+                  counter=attention_rows2_quant, t0=t0)
     attention_rows2_quant.launches += 1
     return out
 
@@ -263,18 +275,21 @@ def attention_rows2_quant(q, k1, v1, k2, v2, k_scale, v_scale, bias=None):
 def attention_quant(q, k, v, k_scale, v_scale, bias=None):
     """K6: q over a quantized K/V alone (int8 [B, H, S, D] or packed int4
     [B, H, S/2, D] rows, fp32 scales [B, H, S]); bias [B, S]."""
+    t0 = telemetry.clock()
     if not _kernel_device(q):
         return attention_quant_reference(q, k, v, k_scale, v_scale, bias)
-    out = _launch(q, None, None, k, v, bias, k_scale, v_scale)
+    out = _launch(q, None, None, k, v, bias, k_scale, v_scale,
+                  counter=attention_quant, t0=t0)
     attention_quant.launches += 1
     return out
 
 
 def reset_launches():
-    """Set every attention launch counter to 0."""
-    attention.launches = attention.long_launches = 0
-    attention_rows2.launches = attention_rows2_quant.launches = 0
-    attention_quant.launches = 0
+    """Set every attention launch counter, and its host times, to 0."""
+    telemetry.reset_counters(__name__)
+    attention.long_launches = 0
 
 
-reset_launches()
+telemetry.register_counters(attention, attention_rows2,
+                            attention_rows2_quant, attention_quant)
+attention.long_launches = 0

@@ -29,7 +29,9 @@ differ only by the order of fp32 sums (about one bf16 ulp at most).
 
 Launch counters: `adaln.launches`, `residual_adaln.launches`,
 `gated_residual.launches` (K7), `qk_norm_rope.launches` (K8),
-`gelu_pack.launches` (K9).
+`gelu_pack.launches` (K9); beside each `.launches`, summed while
+`utils.telemetry` records, `.host_ns` (the wrapper's host time up to its
+launch call) and `.launch_ns` (the launch call).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import torch.nn.functional as F
 
 from regione_tpu_torch.models.layers import (apply_rope, layernorm, rmsnorm,
                                              split_heads)
+from regione_tpu_torch.utils import telemetry
 
 HEAD_DIM = 128
 ADALN_MAX_H = 4096      # K7 holds a row in registers: 16 chunks a lane
@@ -160,14 +163,24 @@ def _call(name: str, device, *args):
     _build.check(code, name)
 
 
+def _counted_call(counter, t0: int, name: str, device, *args):
+    """`_call`, counted on `counter`: one launch, the host ns from `t0`
+    (`telemetry.clock()` at the wrapper's entry) to the call in
+    `host_ns`, and the call's in `launch_ns`."""
+    t = telemetry.lap(counter, t0)
+    _call(name, device, *args)
+    telemetry.lap(counter, t, "launch_ns")
+    counter.launches += 1
+
+
 # ---------------------------------------------------------------------------
 # K7: AdaLN and the gated residual
 # ---------------------------------------------------------------------------
 
-def _launch_adaln(counter, x, gate, y, shift, scale):
-    """One K7 launch, counted on `counter`'s `launches` (none for an empty
-    batch): returns (x + gate * y or None, the AdaLN output or None), each
-    a new dense [B, S, h] tensor."""
+def _launch_adaln(counter, t0, x, gate, y, shift, scale):
+    """One K7 launch, counted on `counter` from `t0` (none for an empty
+    batch): returns (x + gate * y or None, the AdaLN output or
+    None), each a new dense [B, S, h] tensor."""
     dev = x.device
     strides = _check("x", x, dev, (None, None, None))
     b, s, h = x.shape
@@ -190,10 +203,9 @@ def _launch_adaln(counter, x, gate, y, shift, scale):
     if b * s == 0:
         return x_out, out
     strides = (ctypes.c_longlong * 7)(*strides)
-    _call("regione_adaln_fwd", dev, x.data_ptr(), _ptr(y), _ptr(gate),
-          _ptr(shift), _ptr(scale), _ptr(x_out), _ptr(out), strides, b, s,
-          h)
-    counter.launches += 1
+    _counted_call(counter, t0, "regione_adaln_fwd", dev, x.data_ptr(),
+                  _ptr(y), _ptr(gate), _ptr(shift), _ptr(scale),
+                  _ptr(x_out), _ptr(out), strides, b, s, h)
     return x_out, out
 
 
@@ -201,25 +213,28 @@ def adaln(x, shift, scale):
     """K7: layernorm(x) * (1 + scale) + shift; x [B, S, h] (any row
     stride), shift / scale [B, 1, h] (views of `_modulation`'s chunk).
     CPU: plain version.  CUDA: the kernel, or raises."""
+    t0 = telemetry.clock()
     if not _kernel_device(x, "adaln"):
         return adaln_reference(x, shift, scale)
-    return _launch_adaln(adaln, x, None, None, shift, scale)[1]
+    return _launch_adaln(adaln, t0, x, None, None, shift, scale)[1]
 
 
 def residual_adaln(x, gate, y, shift, scale):
     """K7, residual mode: x' = x + gate * y, then (x', layernorm(x') *
     (1 + scale) + shift) from one pass; x' is a new tensor."""
+    t0 = telemetry.clock()
     if not _kernel_device(x, "adaln"):
         x = gated_residual_reference(x, gate, y)
         return x, adaln_reference(x, shift, scale)
-    return _launch_adaln(residual_adaln, x, gate, y, shift, scale)
+    return _launch_adaln(residual_adaln, t0, x, gate, y, shift, scale)
 
 
 def gated_residual(x, gate, y):
     """K7, residual-only mode: x + gate * y into a new tensor."""
+    t0 = telemetry.clock()
     if not _kernel_device(x, "adaln"):
         return gated_residual_reference(x, gate, y)
-    return _launch_adaln(gated_residual, x, gate, y, None, None)[0]
+    return _launch_adaln(gated_residual, t0, x, gate, y, None, None)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +251,7 @@ def qk_norm_rope(x, heads: int, scale=None, rope=None, out=None,
     `out` is returned; without, a new tensor (on the CPU the plain
     version's `split_heads` layout).  CPU: plain version.  CUDA: the
     kernel, or raises."""
+    t0 = telemetry.clock()
     if not _kernel_device(x, "qk_norm_rope"):
         ref = qk_norm_rope_reference(x, heads, scale, rope)
         if out is None:
@@ -271,9 +287,9 @@ def qk_norm_rope(x, heads: int, scale=None, rope=None, out=None,
         return out
     dst = out.narrow(2, row0, s)
     strides = (ctypes.c_longlong * 7)(*strides, *dst.stride()[:3])
-    _call("regione_qk_norm_rope_fwd", dev, x.data_ptr(), _ptr(scale),
-          _ptr(cos), _ptr(sin), dst.data_ptr(), strides, b, s, heads)
-    qk_norm_rope.launches += 1
+    _counted_call(qk_norm_rope, t0, "regione_qk_norm_rope_fwd", dev,
+                  x.data_ptr(), _ptr(scale), _ptr(cos), _ptr(sin),
+                  dst.data_ptr(), strides, b, s, heads)
     return out
 
 
@@ -286,6 +302,7 @@ def gelu_pack(attn, h):
     [B, S, mlp] (any row stride: the MLP half of `linear1`'s output);
     attn None: gelu_tanh(h) alone.  A new dense tensor.  CPU: plain
     version.  CUDA: the kernel, or raises."""
+    t0 = telemetry.clock()
     if not _kernel_device(h, "gelu_pack"):
         return gelu_pack_reference(attn, h)
     dev = h.device
@@ -299,16 +316,15 @@ def gelu_pack(attn, h):
     if b * s == 0:
         return out
     strides = (ctypes.c_longlong * 4)(*strides, *h_strides)
-    _call("regione_gelu_pack_fwd", dev, _ptr(attn), h.data_ptr(),
-          out.data_ptr(), strides, b, s, inner, mlp)
-    gelu_pack.launches += 1
+    _counted_call(gelu_pack, t0, "regione_gelu_pack_fwd", dev, _ptr(attn),
+                  h.data_ptr(), out.data_ptr(), strides, b, s, inner, mlp)
     return out
 
 
 def reset_launches():
-    """Set every fused-kernel launch counter to 0."""
-    adaln.launches = residual_adaln.launches = gated_residual.launches = 0
-    qk_norm_rope.launches = gelu_pack.launches = 0
+    """Set every fused-kernel launch counter, and its host times, to 0."""
+    telemetry.reset_counters(__name__)
 
 
-reset_launches()
+telemetry.register_counters(adaln, residual_adaln, gated_residual,
+                            qk_norm_rope, gelu_pack)

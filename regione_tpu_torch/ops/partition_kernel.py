@@ -16,13 +16,17 @@ thresholding its tile plus a 3-cell halo (see the source's note).  On a
 CPU tensor `fused_partition` computes the plain PyTorch version
 (`partition_reference`, the same formula); on a CUDA tensor it launches
 the kernel or raises.  `fused_partition.launches` counts kernel launches
-(one per call, whatever the batch).
+(one per call, whatever the batch); beside it, summed while
+`utils.telemetry` records, `fused_partition.host_ns` (its host time up to
+its launch call) and `.launch_ns` (the launch call).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from regione_tpu_torch.utils import telemetry
 
 
 def remove_scattered_points(mask2d):
@@ -64,6 +68,7 @@ def fused_partition(x0, cond, threshold, grid_h: int, grid_w: int,
     """K3: x0, cond [S, D] (batch squeezed) or [B, S, D] (one image per
     row), threshold a float -> bool [S] or [B, S], in one launch.
     CPU: plain version.  CUDA: the kernel (fp32, dense), or raises."""
+    t0 = telemetry.clock()
     if x0.device.type == "cpu":
         return partition_reference(x0, cond, threshold, grid_h, grid_w,
                                    erosion_dilation)
@@ -87,12 +92,14 @@ def fused_partition(x0, cond, threshold, grid_h: int, grid_w: int,
     lib = _build.load()
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
+        t = telemetry.lap(fused_partition, t0)
         code = lib.regione_partition_fwd(
             x0.data_ptr(), cond.data_ptr(), float(threshold), grid_h, grid_w,
             d, int(erosion_dilation), batch, s * d, out.data_ptr(), stream)
+    telemetry.lap(fused_partition, t, "launch_ns")
     _build.check(code, "regione_partition_fwd")
     fused_partition.launches += 1
     return out.view(torch.bool)
 
 
-fused_partition.launches = 0
+telemetry.register_counters(fused_partition)

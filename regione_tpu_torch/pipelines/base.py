@@ -19,7 +19,12 @@ Counterpart of `regione_tpu/pipelines/base.py`.  Latent path:
     cache rows follow it.  On a (dp, tp) mesh (`parallel.sharding`) each
     dp rank denoises its share of the requests on its tp group;
   * a model sharded by `parallel.sharding.shard_params` carries its mesh,
-    which `edit_latents` hands to the sampler.
+    which `edit_latents` hands to the sampler;
+  * spans of `utils.telemetry`: `pipeline.edit` around each
+    `edit_latents` / `edit_latents_batch` call (the edit: its attrs gain
+    the kernel wrappers' launches and host ns), `pipeline.dense_forward` /
+    `pipeline.rags_forward` around each call of the two hooks, all with
+    CUDA events on a card.
 Image path (`prepare_inputs`, `__call__`): the target resolution policy,
 the VAE encode of every reference, the prompt embeddings of both CFG halves
 (padded to one length, the padding masked by a -1e9 text bias), the initial
@@ -51,6 +56,7 @@ from regione_tpu_torch.models.mmdit import (MODE_DENSE, MODE_RAGS,
                                             MODE_WRITE, MMDiT, init_cache)
 from regione_tpu_torch.models.vae import pack_latents, unpack_latents
 from regione_tpu_torch.parallel.sharding import dp_all_gather
+from regione_tpu_torch.utils import telemetry
 
 
 def latent_grid_ids(grid_h: int, grid_w: int, axis0: int = 0) -> np.ndarray:
@@ -162,6 +168,11 @@ class EditPipelineBase:
 
     def dense_forward(self, lat, sigma, cache, ctx: EditInputs, write: bool):
         """Full-sequence forward over [noise ‖ condition] image rows."""
+        with telemetry.span("pipeline.dense_forward", events_on=lat,
+                            rows=lat.shape[1], write=write):
+            return self._dense(lat, sigma, cache, ctx, write)
+
+    def _dense(self, lat, sigma, cache, ctx, write):
         s_noise = lat.shape[1]
         dt = self.cfg.dtype
         cond = ctx.cond_latent.to(dt).expand(lat.shape[0], -1, -1)
@@ -178,6 +189,11 @@ class EditPipelineBase:
         """Gathered edited-token forward against the frozen KV cache; ids
         [K] (one partition) or [B, K] (one per image, expanded with the
         CFG rows)."""
+        with telemetry.span("pipeline.rags_forward", events_on=lat_act,
+                            rows=lat_act.shape[1]):
+            return self._rags(lat_act, sigma, cache, ids, ctx)
+
+    def _rags(self, lat_act, sigma, cache, ids, ctx):
         img_in = self._expand_cfg(lat_act.to(self.cfg.dtype))
         t = self._timestep(img_in.shape[0], sigma, lat_act.device)
         # the sampler pads ids with s_noise, which is a REAL cache row (the
@@ -225,10 +241,17 @@ class EditPipelineBase:
     @torch.inference_mode()
     def edit_latents(self, latents0, ctx: EditInputs, grid_h: int,
                      grid_w: int, dense_only: bool = False,
-                     forced_mask=None, timed: bool = False):
+                     forced_mask=None):
         """latents0 [1, S_noise, C] initial noise -> (latents fp32, stats);
         stats is None for the dense baseline, which runs when `dense_only`
         is set or RegionE is disabled (`RegionEHelper.disable()`)."""
+        with telemetry.span("pipeline.edit", events_on=latents0, edit=True,
+                            grid=(grid_h, grid_w), batch=latents0.shape[0],
+                            backend=self.backend):
+            return self._edit(latents0, ctx, grid_h, grid_w, dense_only,
+                              forced_mask)
+
+    def _edit(self, latents0, ctx, grid_h, grid_w, dense_only, forced_mask):
         batch_cache = 2 if self.do_cfg else 1
         sampler = self.sampler_for(grid_h, grid_w, ctx.txt.shape[1],
                                    batch_cache, s_cond=ctx.cond_latent.shape[1])
@@ -237,8 +260,7 @@ class EditPipelineBase:
         if dense_only or not self._regione_enabled:
             return sampler.sample_dense(latents0, ctx), None
         return sampler.sample(latents0, ctx.cond_latent[:, :s_noise], ctx,
-                              forced_mask=forced_mask, timed=timed,
-                              mesh=self.model.mesh)
+                              forced_mask=forced_mask, mesh=self.model.mesh)
 
     @torch.inference_mode()
     def edit_latents_batch(self, latents_list, ctx_list, grid_h: int,
@@ -260,6 +282,15 @@ class EditPipelineBase:
         "tp" by `shard_params` or whole.  The group shares one capacity
         bucket, the largest count over all B.  Every rank returns all B
         latents and stats."""
+        with telemetry.span("pipeline.edit",
+                            events_on=next(iter(latents_list), None),
+                            edit=True, grid=(grid_h, grid_w),
+                            batch=len(latents_list), backend=self.backend):
+            return self._edit_batch(latents_list, ctx_list, grid_h, grid_w,
+                                    forced_masks, mesh)
+
+    def _edit_batch(self, latents_list, ctx_list, grid_h, grid_w,
+                    forced_masks, mesh):
         if None not in (mesh, self.model.mesh) and mesh is not self.model.mesh:
             raise ValueError("edit_latents_batch: the model is sharded over "
                              "another mesh")

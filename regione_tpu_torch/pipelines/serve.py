@@ -19,11 +19,13 @@ Counterpart of `regione_tpu/pipelines/serve.py`:
 
 Each result carries its own `SampleStats` (its own edited-token count even
 when batched) and the stages `StageTimer` recorded for it: "prep" (on the
-worker, ended by its stream), "denoise" and "decode".  `latency_s` is the
-request's wall time (denoise and decode); in a group it is the group's
-time over its size, the group's time beside it.  The initial noise is the
-pipeline's `initial_latents(seed)`, torch's generator, not `jax.random`'s
-bits.
+worker, ended by its stream), "denoise" and "decode"; while
+`utils.telemetry` records, each stage is also a span `serve.<stage>` with
+the request's index (a group's denoise: the indices of its requests).
+`latency_s` is the request's wall time (denoise and decode); in a group it
+is the group's time over its size, the group's time beside it.  The
+initial noise is the pipeline's `initial_latents(seed)`, torch's
+generator, not `jax.random`'s bits.
 """
 
 from __future__ import annotations
@@ -103,8 +105,9 @@ class EditService:
         self._prep_stream = (torch.cuda.Stream(device=dev)
                              if dev.type == "cuda" else None)
 
-    def _prepare(self, req: EditRequest) -> tuple[_Prepared, float]:
-        timer = StageTimer()
+    def _prepare(self, req: EditRequest, index: int | None = None
+                 ) -> tuple[_Prepared, float]:
+        timer = StageTimer(request=index)
         stream = self._prep_stream
         ready = None
         with timer.stage("prep"), (torch.cuda.stream(stream) if stream
@@ -167,11 +170,12 @@ class EditService:
         overlap = getattr(self.pipe.text_encoder, "placement",
                           None) != "offload"
         with ThreadPoolExecutor(max_workers=1) as prep_pool:
-            fut = prep_pool.submit(self._prepare, requests[0])
+            fut = prep_pool.submit(self._prepare, requests[0], 0)
             for i in range(len(requests)):
                 prepared, prep_s = fut.result()
                 if i + 1 < len(requests):
-                    fut = prep_pool.submit(self._prepare, requests[i + 1])
+                    fut = prep_pool.submit(self._prepare, requests[i + 1],
+                                           i + 1)
                     if not overlap:
                         fut.result()
                 t0 = time.perf_counter()
@@ -189,7 +193,7 @@ class EditService:
         `mesh`: a (dp, tp) mesh, handed to `edit_latents_batch` (each dp
         rank denoises its share of a group; every rank of the mesh calls
         with all the requests and gets every result)."""
-        prepped = [self._prepare(req) for req in requests]
+        prepped = [self._prepare(req, i) for i, req in enumerate(requests)]
         # the group key: token grid, text and condition lengths, and the
         # rope tables' content (equal-length condition sequences can
         # decompose into different grids: same shapes, other positions)
@@ -206,7 +210,7 @@ class EditService:
                 for i in chunk:
                     self._adopt(prepped[i][0])
                 t0 = time.perf_counter()
-                timer = StageTimer()
+                timer = StageTimer(request=chunk)
                 with timer.stage("denoise",
                                  sync_on=prepped[chunk[0]][0].lat0):
                     outs, stats = self.pipe.edit_latents_batch(

@@ -1,8 +1,7 @@
 """The port's `utils.telemetry` and `utils.memplan`.
 
-  * `StageTimer` accumulates named segments; `log_stats` appends one JSON
-    line per record, tensors and dataclasses included; `trace` writes a
-    Chrome trace;
+  * `StageTimer` accumulates named segments; `trace` writes a Chrome
+    trace (the spans and counters: tests/test_torch_telemetry.py);
   * `memplan.plan` counts the same parameter, KV-cache and activation
     bytes as the JAX package's `memplan.plan` at tp 1 (its `jax.eval_shape`
     allocates nothing; the port's `meta` tensors neither) for `tiny`,
@@ -12,17 +11,14 @@
     cache format raises.
 """
 
-import dataclasses
 import json
 import time
 
 import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
 
 from regione_tpu.utils import memplan as jmemplan
-from regione_tpu_torch.core.sampler import SampleStats
 from regione_tpu_torch.utils import memplan, telemetry
 
 JAX_CACHE = {"bf16": dict(cache_dtype=None),
@@ -41,23 +37,6 @@ def test_stage_timer_accumulates_named_segments():
     assert set(seg) == {"a", "b"} and seg["a"] >= 0.02 and seg["b"] >= 0
     seg["a"] = 0.0
     assert timer.as_dict()["a"] >= 0.02       # a copy
-
-
-def test_log_stats_appends_json_lines(tmp_path):
-    path = tmp_path / "sub" / "stats.jsonl"
-    st = SampleStats(edited_tokens=7, capacity=8, seq_len=64, reuse_steps=9,
-                     dense_steps=9, rags_steps=19)
-    telemetry.log_stats(path, {"stats": st, "count": torch.tensor(3),
-                               "lat": torch.ones(2), "f": np.float32(0.5),
-                               "shape": (1, 2), "dev": torch.device("cpu")})
-    telemetry.log_stats(path, {"n": 1})
-    lines = [json.loads(x) for x in path.read_text().splitlines()]
-    assert len(lines) == 2 and lines[1]["n"] == 1
-    rec = lines[0]
-    assert rec["stats"] == dataclasses.asdict(st)
-    assert rec["count"] == 3 and rec["lat"] == [1.0, 1.0]
-    assert rec["f"] == 0.5 and rec["shape"] == [1, 2]
-    assert rec["dev"] == "cpu" and rec["ts"] > 0
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
