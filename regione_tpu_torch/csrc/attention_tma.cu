@@ -1,7 +1,8 @@
 // Non-causal attention over one or two KV segments, built for Hopper: TMA
-// loads into a ring of shared-memory stages, wgmma for both products, one
-// producer warpgroup and two consumer warpgroups.  The second segment is
-// stored as bf16, int8 or int4 (the kernel's template argument).
+// loads into a ring of shared-memory stages, wgmma for both products, two
+// consumer warpgroups (and a producer warpgroup where the second segment is
+// quantized).  The second segment is stored as bf16, int8 or int4 (the
+// kernel's template argument).
 //
 // Replaces these Pallas TPU kernels of regione_tpu/ops/flash_attention.py:
 //   K1 `_kv_resident_kernel` (via `flash_attention`): dense and write steps,
@@ -38,31 +39,51 @@
 // S = 2176..12416, D = 128) attention is compute bound, 4*T*S*D flops
 // against 2*(T+S)*D*2 bytes per (b, h) (fewer for a quantized cache); the
 // bf16 tensor cores (989 TFLOP/s dense) are reached only through wgmma fed
-// from shared memory.  The design:
-//   * a CTA owns 128 query rows of one (b, h) (grid ceil(T/128) x H x B):
-//     384 threads, warpgroups 0 and 1 consume (64 query rows each),
-//     warpgroup 2 produces; `setmaxnreg` moves registers from the producer
-//     (40; 80-88 where it dequantizes) to the consumers (232; 200-208),
-//     which hold the S and O accumulators (64 + 64 fp32) and P (32 bf16x2)
-//     in registers (ptxas compiles every region within the launch bound's
-//     168: the consumers need no more);
-//   * one thread of the producer issues TMA loads: Q once (128 x 128 bf16),
-//     then K and V tiles of 128 keys into a ring of two stages, each stage
-//     released by the consumers through an mbarrier, so copies overlap the
-//     math.  A 128-byte swizzle makes a TMA box row at most 64 bf16, so a
-//     128 x 128 tile is two 128 x 64 boxes.  A second producer warp writes
-//     the tile's 128 bias columns into the stage, times log2(e), with the
-//     columns past the segment's end at -inf, so the consumers read one
-//     shared row instead of 32 global values a thread and mask nothing;
-//   * a quantized tile goes through a staging ring instead: its raw codes
-//     (128 rows x 128 bytes, one box, no swizzle), K then V, are TMA-loaded
-//     into a ring of three 16 KB slots, each released on its own; the
-//     whole producer warpgroup (128 threads, one of which also issues the
-//     TMA loads) dequantizes them and stores the bf16 values into the same
-//     swizzled stage TMA fills for bf16 tiles, then arrives on the stage's
-//     "full" barrier (in these modes it takes all 128 writers' arrivals,
-//     one of which carries TMA's byte count when the tile is bf16), so the
-//     consumers run the bf16 code unchanged.  The tile's fp32 row scales go
+// from shared memory.  Next come the softmax's exp2 (64 a thread a tile, at
+// 16 a clock an SM about half as long as the tile's products) and the K/V
+// stream from L2 (every 128-row CTA reads all of its head's K/V).  The
+// design:
+//   * a CTA owns 128 query rows of one (b, h) (grid ceil(T/128) x H x B);
+//     warpgroups 0 and 1 consume, 64 query rows each;
+//   * bf16 K/V (K1, K5, K2): the block is the two consumer warpgroups alone
+//     (256 threads), so ptxas may give each thread up to 255 registers (it
+//     uses 232, no spills).  Warpgroup 1 also refills the ring: its thread
+//     0 issues the TMA loads (Q once, then K and V tiles of 128 keys), and
+//     its threads stage each tile's 128 bias columns into the stage, times
+//     log2(e), the columns past the segment's end at -inf, so the
+//     softmax reads one shared row and masks nothing.  The bias arrives by
+//     cp.async and is scaled in place a refill later (a global load still
+//     pending on a register stalls the next wgmma fence), and the TMA issue
+//     is a predicate of the instructions, not a branch (ptxas serializes
+//     the wgmma of a warpgroup that branches on its thread index);
+//   * each consumer warpgroup pipelines its tiles (FA3's intra-warpgroup
+//     overlap): round j issues S_j = Q K_j^T and O += P_{j-1} V_{j-1}
+//     together, runs tile j's softmax once S_j is back while the PV
+//     product still runs, then rescales O and packs P_j.  S (64 fp32), O
+//     (64) and P (32 bf16x2) are live at once, which is why this mode
+//     drops the producer warpgroup: a 384-thread block gets 168 registers
+//     a thread in every region (ptxas compiles the whole kernel at the
+//     launch bound's count and does not allocate past it after
+//     `setmaxnreg.inc`, and the card allocates a block's registers by
+//     whole warpgroups, so a 288-thread block costs a 384-thread one).  An
+//     explicit ping-pong of the two warpgroups (FA3's named barriers
+//     ordering their issue) measured slower in every placement tried;
+//   * the ring has three stages of K and V (224 KB with Q), each operand
+//     freed by its own barrier: K and the bias once both warpgroups'
+//     softmax has read them, V once both PV products are done;
+//   * a quantized second segment (K2q, K6) keeps a producer warpgroup of
+//     128 writers and so 168 registers a thread: its raw codes (128 rows x
+//     128 bytes, one box, no swizzle), K then V, are TMA-loaded into a ring
+//     of three 16 KB slots, each released on its own; the writers (one of
+//     which also issues the TMA loads) dequantize them and store the bf16
+//     values into the same swizzled stage TMA fills for bf16 tiles, then
+//     arrive on the stage's "full" barrier (which takes all 128 writers'
+//     arrivals, one of which carries TMA's byte count when the tile is
+//     bf16), and stage the bias (loaded a tile ahead).  Two stages of
+//     K/V fit beside the code slots, and each consumer warpgroup walks the
+//     tiles one product at a time (S, softmax, PV), with one barrier
+//     freeing a stage; `setmaxnreg` moves registers from the writers (80 /
+//     88) to the consumers (208 / 200).  The tile's fp32 row scales go
 //     through shared memory, loaded a tile ahead.  Codes become floats by
 //     the exponent trick (a byte placed under the exponent of 2^23, minus
 //     2^23 + its bias: exact), not by I2F, which runs at a quarter of the
@@ -71,9 +92,11 @@
 //     launch takes the bf16 kernel's time), and what holds it back is the
 //     writers' stalls, not their arithmetic;
 //   * S = Q K^T: wgmma m64n128k16, A (Q) and B (K) from shared memory, both
-//     K-major; O += P V: wgmma m64n128k16 with P in registers (the S
-//     accumulator packed into bf16 A fragments) and V as an MN-major B
-//     operand (the transpose bit bf16 allows), so V needs no transpose;
+//     K-major, a 128-byte swizzle (a TMA box row is at most 64 bf16, so a
+//     128 x 128 tile is two 128 x 64 boxes); O += P V: wgmma m64n128k16
+//     with P in registers (the S accumulator packed into bf16 A fragments)
+//     and V as an MN-major B operand (the transpose bit bf16 allows), so V
+//     needs no transpose;
 //   * the segments are walked one after the other (ceil(S1/128) tiles, then
 //     the second segment's), each tile from its own tensor map with its own
 //     strides and row extent, so no tile straddles the seam; an int4
@@ -81,9 +104,14 @@
 //     map (low nibbles, then high nibbles), so no tile straddles row S2/2
 //     either.  TMA zero-fills rows past a segment's end and their logits are
 //     masked to -inf before the max.
-// Two consumer warpgroups work on the same tiles independently, so one's
-// softmax overlaps the other's products; an explicit ping-pong (FA3), a
-// persistent scheduler and split-KV for small T are later work.
+// Measured (H100 80GB HBM3, 700 W): K1 at FLUX's dense [1,24,8704,128]
+// with a bias takes 1.745 ms, 53.9% of its 0.941 ms bound (the walk one
+// product at a time took 1.781 ms); at Step1X's [2,24,8320,128] 3.132 ms,
+// 54.9% of 1.720 ms (3.320).  With its products alone skipped the bf16
+// kernel still takes 1.13-1.21x its bound's time: the softmax and the K/V
+// stream, more than the products, hold it back.  A persistent scheduler,
+// split-KV for small T, and K/V multicast across a two-CTA cluster (it
+// halves the L2 stream) are later work.
 //
 // Numerics: the running max starts at -1e30 (a tile whose keys are all
 // masked gives no NaN), the online softmax runs in fp32 (in base 2, log2(e)
@@ -102,21 +130,19 @@ namespace {
 constexpr int kD = 128;        // head dim (the only one supported)
 constexpr int kBQ = 128;       // query rows per CTA: two consumers x 64
 constexpr int kBK = 128;       // keys per tile
-constexpr int kStages = 2;     // K/V ring depth
-constexpr int kThreads = 384;  // consumers: warpgroups 0, 1; producer: 2
-constexpr int kConsumers = 256;
+constexpr int kConsumers = 256;  // warpgroups 0, 1; any producer after them
+constexpr int kConsumerWarps = kConsumers / 32;  // one arrival a warp
+constexpr int kLoaderWarps = 4;  // bf16: warpgroup 1 stages the bias
 constexpr int kWriters = 128;  // the producer warpgroup (quantized modes)
 constexpr int kBox = 64;                         // bf16 columns per TMA box
 constexpr int kHalfBytes = kBQ * kBox * 2;       // one 128 x 64 box: 16 KB
 constexpr int kTileBytes = 2 * kHalfBytes;       // a 128 x 128 tile: 32 KB
 constexpr int kCodeBytes = kBK * kD;             // 128 x 128 codes: 16 KB
-constexpr int kSmemK = kTileBytes;               // after Q
-constexpr int kSmemV = kSmemK + kStages * kTileBytes;
-constexpr int kSmemCodes = kSmemV + kStages * kTileBytes;  // code ring
 constexpr int kCodeSlots = 3;  // K, V, K, V, ... code tiles in turn
-// q, full_k[s], full_v[s], full_bias[s], empty[s], code_full[slot],
-// code_empty[slot]
-constexpr int kNumBars = 1 + 4 * kStages + 2 * kCodeSlots;
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
+
+// named barrier of the dequantizing writers (0 is __syncthreads)
+constexpr int kWritersBar = 1;
 
 // storage of the second segment's rows (mode2)
 constexpr int kBf16 = 0;
@@ -129,17 +155,32 @@ constexpr int kInt4 = 2;  // S-halves nibble packing, S2 / 2 stored rows
 // exactly, so a tile masked whole gives p = 1 and no NaN
 constexpr float kLog2e = 1.4426950408889634f;
 
-// shared-memory layout of one instantiation: a quantized mode adds the
-// ring of 16 KB code slots and two buffers of a tile's K and V row scales
-// (fp32 [2][2 * BK]) before the bias
+// Threads and shared-memory layout of one instantiation.  bf16 K/V: the two
+// consumer warpgroups alone (256 threads, so a thread may hold 255
+// registers); a quantized mode adds a warpgroup of writers (384 threads,
+// 168 registers).  Q, then the K and V stages of the ring; a quantized mode
+// adds the ring of 16 KB code slots and two buffers of a tile's K and V row
+// scales (fp32 [2][2 * BK]) before the bias.  The ring is as deep as the
+// block's shared memory allows: three stages of bf16 K/V (224 KB with Q),
+// two beside a quantized mode's 48 KB of code slots.
 template <int Mode>
 struct Smem {
-  static constexpr int kScales = kSmemCodes + kCodeSlots * kCodeBytes;
+  static constexpr int kThreads =
+      Mode == kBf16 ? kConsumers : kConsumers + kWriters;
+  static constexpr int kStages = Mode == kBf16 ? 3 : 2;
+  static constexpr int kK = kTileBytes;  // after Q
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kCodes = kV + kStages * kTileBytes;  // code ring
+  static constexpr int kScales = kCodes + kCodeSlots * kCodeBytes;
   static constexpr int kBias =
-      Mode == kBf16 ? kSmemCodes : kScales + 2 * 2 * kBK * 4;
+      Mode == kBf16 ? kCodes : kScales + 2 * 2 * kBK * 4;
   static constexpr int kBar = kBias + kStages * kBK * 4;  // fp32 [stage][BK]
+  // q, full_k[s], full_v[s], full_bias[s], empty_k[s] (K and the bias),
+  // empty_v[s], code_full[slot], code_empty[slot]
+  static constexpr int kNumBars = 1 + 5 * kStages + 2 * kCodeSlots;
   // + barriers + slack to align the base to the 1024-byte swizzle atom
   static constexpr int kBytes = kBar + 8 * kNumBars + 1024;
+  static_assert(kBytes <= kMaxSmem, "the ring does not fit a block");
 };
 
 struct TmaParams {
@@ -261,8 +302,10 @@ __device__ __forceinline__ void wg_fence() {
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // keep the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma
@@ -270,6 +313,15 @@ __device__ __forceinline__ void reg_fence(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+// the same for the A fragments a register-sourced wgmma reads: they stay
+// live (and unmoved) until the wait that follows it
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
 
 #define WG_D64                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
@@ -408,15 +460,33 @@ __device__ __forceinline__ void dequant_tile(const uint8_t* codes,
   }
 }
 
+// One fp32 from global into shared memory by cp.async (zero-filled where
+// `in` is false, reading nothing), committed as a group of its own;
+// cp_async_wait<N> waits until at most N of this thread's groups are
+// pending.
+__device__ __forceinline__ void cp_async_f32(uint32_t dst, const float* src,
+                                             bool in) {
+  asm volatile(
+      "cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+      "cp.async.commit_group;\n" ::"r"(dst),
+      "l"(src), "r"(in ? 4 : 0)
+      : "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // make this thread's generic shared-memory stores visible to the async
 // proxy (wgmma reads its operands through it)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// the kWriters dequantizing threads alone (named barrier 1)
+// the kWriters dequantizing threads alone
 __device__ __forceinline__ void writers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kWriters) : "memory");
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kWritersBar), "n"(kWriters)
+               : "memory");
 }
 
 // Row wt's K and V scales of a quantized tile, 0 past the (sub-)segment's
@@ -438,30 +508,136 @@ __device__ __forceinline__ float bias_col(const float* brow, const Tile& tl,
   return brow != nullptr ? brow[tl.key + c] * kLog2e : 0.f;
 }
 
-// Q (128 x 128 bf16, two boxes) of this CTA
-__device__ __forceinline__ void load_q(uint32_t dst, const CUtensorMap* map,
-                                       uint32_t bar, int q0, int h, int b) {
-  mbar_expect_tx(bar, kTileBytes);
-  tma_load(dst, map, bar, 0, q0, h, b);
-  tma_load(dst + kHalfBytes, map, bar, kBox, q0, h, b);
+// A bf16 tile of rows [j0, j0 + 128) (Q, or K or V into a stage): two
+// boxes, completing `bar`, issued by the threads where `on` holds.  The
+// predicate is the instructions' own, not a branch: ptxas serializes the
+// wgmma of a warpgroup that branches on its thread index between them.
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int j0, int h, int b,
+                                          bool on = true) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %8, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%3], %9;\n"
+      "@p cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%2, {%4, %5, %6, %7}], [%3];\n"
+      "@p cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%1], [%2, {%10, %5, %6, %7}], [%3];\n"
+      "}\n" ::"r"(dst),
+      "r"(dst + kHalfBytes), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+      "r"(0), "r"(j0), "r"(h), "r"(b), "r"(static_cast<int>(on)),
+      "r"(kTileBytes), "r"(kBox)
+      : "memory");
 }
 
-// The bf16 K and V tiles of rows [j0, j0 + 128) into a stage, two boxes
-// each, each completing its own barrier.
-__device__ __forceinline__ void load_kv(uint32_t dk, uint32_t dv,
-                                        const CUtensorMap* mk,
-                                        const CUtensorMap* mv, uint32_t bk,
-                                        uint32_t bv, int j0, int h, int b) {
-  mbar_expect_tx(bk, kTileBytes);
-  tma_load(dk, mk, bk, 0, j0, h, b);
-  tma_load(dk + kHalfBytes, mk, bk, kBox, j0, h, b);
-  mbar_expect_tx(bv, kTileBytes);
-  tma_load(dv, mv, bv, 0, j0, h, b);
-  tma_load(dv + kHalfBytes, mv, bv, kBox, j0, h, b);
+// S = Q K^T for this warpgroup's 64 rows x 128 keys: 8 steps over the head
+// dim, issued and committed as one group (not waited for).
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t qa,
+                                        uint32_t kt) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
+    wgmma_ss(s, smem_desc(qa + off, 16, 1024), smem_desc(kt + off, 16, 1024),
+             kk > 0);
+  }
+  wg_commit();
+}
+
+// O += P V over the tile's 128 keys, P the packed A fragments, issued and
+// committed as one group.
+__device__ __forceinline__ void issue_pv(float (&o)[64],
+                                         const uint32_t (&pa)[8][4],
+                                         uint32_t vt) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    // 16 keys = two 8-row groups (1024 bytes apart); the two 64-column
+    // halves of V are one box (16 KB) apart
+    wgmma_rs(o, pa[kk], smem_desc(vt + kk * 2048, kHalfBytes, 1024));
+  }
+  wg_commit();
+}
+
+// This warp is done with a stage's operand: one arrival a warp, after
+// every lane's reads.
+__device__ __forceinline__ void release(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// The online softmax of one tile's logits, in place: scale and bias (sb:
+// the staged bias at this thread's column pair; -inf past the segment),
+// the running max m and sum l of rows g and g + 8 updated, s turned into
+// the unnormalised P, and a = 2^(m_old - m_new), by which O is rescaled
+// before this tile's PV product.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], const float* sb,
+                                             float scale2, float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float& a0, float& a1) {
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    const float2 bn = *reinterpret_cast<const float2*>(sb + 8 * n);
+    s[4 * n] = fmaf(s[4 * n], scale2, bn.x);
+    s[4 * n + 1] = fmaf(s[4 * n + 1], scale2, bn.y);
+    s[4 * n + 2] = fmaf(s[4 * n + 2], scale2, bn.x);
+    s[4 * n + 3] = fmaf(s[4 * n + 3], scale2, bn.y);
+    mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0);
+  const float mn1 = fmaxf(m1, mx1);
+  a0 = fast_exp2(m0 - mn0);
+  a1 = fast_exp2(m1 - mn1);
+  float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      s[4 * n + j] = fast_exp2(s[4 * n + j] - mn0);
+      s[4 * n + 2 + j] = fast_exp2(s[4 * n + 2 + j] - mn1);
+      ls0 += s[4 * n + j];
+      ls1 += s[4 * n + 2 + j];
+    }
+  }
+  ls0 += __shfl_xor_sync(0xffffffffu, ls0, 1);
+  ls0 += __shfl_xor_sync(0xffffffffu, ls0, 2);
+  ls1 += __shfl_xor_sync(0xffffffffu, ls1, 1);
+  ls1 += __shfl_xor_sync(0xffffffffu, ls1, 2);
+  l0 = l0 * a0 + ls0;
+  l1 = l1 * a1 + ls1;
+  m0 = mn0;
+  m1 = mn1;
+}
+
+// O *= a (rows g, g + 8), then P (the softmax's s) packed into the bf16 A
+// fragments of the PV product.
+__device__ __forceinline__ void rescale_and_pack(float (&o)[64],
+                                                 const float (&s)[64],
+                                                 float a0, float a1,
+                                                 uint32_t (&pa)[8][4]) {
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    o[4 * n] *= a0;
+    o[4 * n + 1] *= a0;
+    o[4 * n + 2] *= a1;
+    o[4 * n + 3] *= a1;
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
 }
 
 template <int Mode>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Smem<Mode>::kThreads, 1)
 attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk1,
                      const __grid_constant__ CUtensorMap tv1,
@@ -469,26 +645,30 @@ attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tv2,
                      const __grid_constant__ TmaParams p) {
   constexpr bool kQuant = Mode != kBf16;
+  constexpr int kStages = Smem<Mode>::kStages;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - smem_u32(smem_raw));
   const uint32_t sq = base;
-  const uint32_t sk = base + kSmemK;
-  const uint32_t sv = base + kSmemV;
-  const uint32_t scodes = base + kSmemCodes;  // code ring (quantized)
+  const uint32_t sk = base + Smem<Mode>::kK;
+  const uint32_t sv = base + Smem<Mode>::kV;
+  const uint32_t scodes = base + Smem<Mode>::kCodes;  // code ring (quantized)
   const uint32_t bar_q = base + Smem<Mode>::kBar;
   const uint32_t bar_k = bar_q + 8;                 // full_k[s]
   const uint32_t bar_v = bar_k + 8 * kStages;       // full_v[s]
   const uint32_t bar_b = bar_v + 8 * kStages;       // full_bias[s]
-  const uint32_t bar_e = bar_b + 8 * kStages;       // empty[s]
-  const uint32_t bar_cf = bar_e + 8 * kStages;      // code_full[slot]
+  const uint32_t bar_ek = bar_b + 8 * kStages;      // empty_k[s]
+  const uint32_t bar_ev = bar_ek + 8 * kStages;     // empty_v[s]
+  const uint32_t bar_cf = bar_ev + 8 * kStages;     // code_full[slot]
   const uint32_t bar_ce = bar_cf + 8 * kCodeSlots;  // code_empty[slot]
   // the bias stages through a generic pointer (plain loads and stores)
   float* const sbias = reinterpret_cast<float*>(gbase + Smem<Mode>::kBias);
 
   const int tid = threadIdx.x;
-  const int wg = tid / 128;
+  // warp-uniform, and known to be so by the compiler: else ptxas takes
+  // the branches on it as divergent and serializes the wgmma
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * kBQ;
@@ -503,8 +683,9 @@ attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
       // (and, for a bf16 tile, TMA's bytes have landed)
       mbar_init(bar_k + 8 * s, kQuant ? kWriters : 1);
       mbar_init(bar_v + 8 * s, kQuant ? kWriters : 1);
-      mbar_init(bar_b + 8 * s, kQuant ? kWriters : 32);
-      mbar_init(bar_e + 8 * s, kConsumers);
+      mbar_init(bar_b + 8 * s, kQuant ? kWriters : kLoaderWarps);
+      mbar_init(bar_ek + 8 * s, kConsumerWarps);
+      mbar_init(bar_ev + 8 * s, kConsumerWarps);
     }
     for (int c = 0; c < kCodeSlots; ++c) {
       mbar_init(bar_cf + 8 * c, 1);
@@ -516,37 +697,11 @@ attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  if (wg == 2) {
-    const int ptid = tid - 2 * 128;
-    const float* brow =
-        p.bias ? p.bias + static_cast<long long>(b) * (p.S1 + p.S2) : nullptr;
-    if constexpr (!kQuant) {
-      // ---- producer, bf16 K/V: one thread keeps the TMA loads in flight,
-      // warp 1 stages the bias --------------------------------------------
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-      if (ptid >= 32 && ptid < 64) {
-        for (int it = 0; it < n_tiles; ++it) {
-          const int s = it % kStages;
-          mbar_wait(bar_e + 8 * s, ((it / kStages) & 1) ^ 1);
-          const Tile tl = walk.at(it, p);
-#pragma unroll
-          for (int c = ptid - 32; c < kBK; c += 32)
-            sbias[s * kBK + c] = bias_col(brow, tl, c);
-          mbar_arrive(bar_b + 8 * s);  // release: the stores are visible
-        }
-      } else if (ptid == 0) {
-        load_q(sq, &tq, bar_q, q0, h, b);
-        for (int it = 0; it < n_tiles; ++it) {
-          const int s = it % kStages;
-          const Tile tl = walk.at(it, p);
-          // round 0 passes at once: the ring starts empty
-          mbar_wait(bar_e + 8 * s, ((it / kStages) & 1) ^ 1);
-          load_kv(sk + s * kTileBytes, sv + s * kTileBytes,
-                  tl.fresh ? &tk1 : &tk2, tl.fresh ? &tv1 : &tv2,
-                  bar_k + 8 * s, bar_v + 8 * s, tl.j0, h, b);
-        }
-      }
-    } else {
+  const float* brow =
+      p.bias ? p.bias + static_cast<long long>(b) * (p.S1 + p.S2) : nullptr;
+  if (tid >= kConsumers) {  // a quantized mode's writers
+    if constexpr (kQuant) {
+      const int ptid = tid - kConsumers;
       // ---- producer, quantized second segment: all 128 threads stage the
       // bias and dequantize; thread 0 also issues the TMA loads, each code
       // tile's as soon as its ring slot is read ---------------------------
@@ -567,7 +722,7 @@ attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
                  bar_cf + 8 * slot, 0, walk.at(n1 + n / 2, p).j0, h, b);
       };
       if (wt == 0) {
-        load_q(sq, &tq, bar_q, q0, h, b);
+        load_tile(sq, &tq, bar_q, q0, h, b);
         for (int n = 0; n < kCodeSlots && n < n_codes; ++n) load_codes(n);
       }
       // the row scales go through shared memory, each quantized tile's
@@ -583,13 +738,13 @@ attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
       float pre_b = bias_col(brow, walk.at(0, p), wt);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
-        mbar_wait(bar_e + 8 * s, ((it / kStages) & 1) ^ 1);
+        mbar_wait(bar_ev + 8 * s, ((it / kStages) & 1) ^ 1);
         const Tile tl = walk.at(it, p);
         if (tl.fresh) {
           // bf16 rows: thread 0's arrivals carry TMA's byte counts
           if (wt == 0) {
-            load_kv(sk + s * kTileBytes, sv + s * kTileBytes, &tk1, &tv1,
-                    bar_k + 8 * s, bar_v + 8 * s, tl.j0, h, b);
+            load_tile(sk + s * kTileBytes, &tk1, bar_k + 8 * s, tl.j0, h, b);
+            load_tile(sv + s * kTileBytes, &tv1, bar_v + 8 * s, tl.j0, h, b);
           } else {
             mbar_arrive(bar_k + 8 * s);
             mbar_arrive(bar_v + 8 * s);
@@ -612,9 +767,10 @@ attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
           const int n = 2 * (it - n1) + kv;
           const int slot = n % kCodeSlots;
           mbar_wait(bar_cf + 8 * slot, (n / kCodeSlots) & 1);
-          dequant_tile<Mode>(gbase + kSmemCodes + slot * kCodeBytes,
-                             gbase + (kv ? kSmemV : kSmemK) + s * kTileBytes,
-                             ss + kv * kBK, tl.high, wt);
+          dequant_tile<Mode>(
+              gbase + Smem<Mode>::kCodes + slot * kCodeBytes,
+              gbase + (kv ? Smem<Mode>::kV : Smem<Mode>::kK) + s * kTileBytes,
+              ss + kv * kBK, tl.high, wt);
           fence_proxy_async();       // before the consumers' wgmma read
           mbar_arrive((kv ? bar_v : bar_k) + 8 * s);
           mbar_arrive(bar_ce + 8 * slot);  // the codes are read
@@ -628,8 +784,6 @@ attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
       asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n");
     else if constexpr (Mode == kInt4)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 208;\n");
-    else
-      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int ctid = tid % 128;
     const int warp = ctid / 32;
     const int lane = ctid % 32;
@@ -643,98 +797,137 @@ attention_tma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < 64; ++i) o[i] = 0.f;
     float m0 = kMaskedMax, m1 = kMaskedMax;  // running max, rows g, g + 8
     float l0 = 0.f, l1 = 0.f;        // running sum
+    float a0, a1;                    // the rescale of O by the last softmax
+    float sacc[64];                  // S of the tile in flight
+    uint32_t pa[8][4];               // P of the tile before it, bf16
     const uint32_t qa = sq + wg * (64 * kBox * 2);  // this warpgroup's rows
 
-    mbar_wait(bar_q, 0);
-    for (int it = 0; it < n_tiles; ++it) {
-      const int s = it % kStages;
-      const uint32_t parity = (it / kStages) & 1;
-
-      // ---- S = Q K^T: 64 rows x 128 keys, 8 steps over the head dim -----
-      float sacc[64];
-      mbar_wait(bar_k + 8 * s, parity);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
-        wgmma_ss(sacc, smem_desc(qa + off, 16, 1024),
-                 smem_desc(sk + s * kTileBytes + off, 16, 1024), kk > 0);
+    if constexpr (kQuant) {
+      // each warpgroup walks the tiles on its own, one product at a time
+      // (168 registers hold S and O, or O and P, but not all three)
+      mbar_wait(bar_q, 0);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        const uint32_t parity = (it / kStages) & 1;
+        mbar_wait(bar_k + 8 * s, parity);
+        wg_fence();
+        issue_qk(sacc, qa, sk + s * kTileBytes);
+        wg_wait<0>();
+        reg_fence(sacc);
+        mbar_wait(bar_b + 8 * s, parity);
+        softmax_tile(sacc, sbias + s * kBK + 2 * t, scale2, m0, m1, l0, l1,
+                     a0, a1);
+        rescale_and_pack(o, sacc, a0, a1, pa);
+        mbar_wait(bar_v + 8 * s, parity);
+        wg_fence();
+        issue_pv(o, pa, sv + s * kTileBytes);
+        wg_wait<0>();
+        reg_fence(o);
+        release(bar_ev + 8 * s, lane);  // K, V and the bias
       }
-      wg_commit();
-      wg_wait_all();
-      reg_fence(sacc);
-
-      // ---- scale and bias (-inf past the segment); online softmax -------
-      mbar_wait(bar_b + 8 * s, parity);
-      const float* sb = sbias + s * kBK + 2 * t;
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < 16; ++n) {
-        const float2 bn = *reinterpret_cast<const float2*>(sb + 8 * n);
-        sacc[4 * n] = fmaf(sacc[4 * n], scale2, bn.x);
-        sacc[4 * n + 1] = fmaf(sacc[4 * n + 1], scale2, bn.y);
-        sacc[4 * n + 2] = fmaf(sacc[4 * n + 2], scale2, bn.x);
-        sacc[4 * n + 3] = fmaf(sacc[4 * n + 3], scale2, bn.y);
-        mx0 = fmaxf(mx0, fmaxf(sacc[4 * n], sacc[4 * n + 1]));
-        mx1 = fmaxf(mx1, fmaxf(sacc[4 * n + 2], sacc[4 * n + 3]));
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float mn0 = fmaxf(m0, mx0);
-      const float mn1 = fmaxf(m1, mx1);
-      const float a0 = fast_exp2(m0 - mn0);
-      const float a1 = fast_exp2(m1 - mn1);
-      float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-      for (int n = 0; n < 16; ++n) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          sacc[4 * n + j] = fast_exp2(sacc[4 * n + j] - mn0);
-          sacc[4 * n + 2 + j] = fast_exp2(sacc[4 * n + 2 + j] - mn1);
-          ls0 += sacc[4 * n + j];
-          ls1 += sacc[4 * n + 2 + j];
+    } else {
+      // Warpgroup 1 refills the ring, after its own products of the round:
+      // its thread 0 issues the TMA loads of tile it's K (V) once every
+      // warp has released the slot's last K (V), and its threads stage the
+      // tile's bias with K, a column each.  The bias comes by cp.async,
+      // which leaves no load pending on a register (a wgmma fence would
+      // wait for it), raw into the stage, and is scaled and masked there
+      // one refill later, as `bias_col` computes it.  Round 0 of each slot
+      // passes at once: the ring starts empty.
+      auto publish_bias = [&](int it) {
+        const int s = it % kStages;
+        float& x = sbias[s * kBK + ctid];
+        x = ctid < walk.at(it, p).valid ? x * kLog2e : -INFINITY;
+        release(bar_b + 8 * s, lane);
+      };
+      auto refill_k = [&](int it) {
+        const int s = it % kStages;
+        const Tile tl = walk.at(it, p);
+        mbar_wait(bar_ek + 8 * s, ((it / kStages) & 1) ^ 1);
+        load_tile(sk + s * kTileBytes, tl.fresh ? &tk1 : &tk2, bar_k + 8 * s,
+                  tl.j0, h, b, ctid == 0);
+        // 0 without a bias or past the segment's end
+        const bool in = brow != nullptr && ctid < tl.valid;
+        cp_async_f32(smem_u32(sbias + s * kBK + ctid),
+                     in ? brow + tl.key + ctid
+                        : reinterpret_cast<const float*>(p.out),
+                     in);
+        if (it > 0) {
+          cp_async_wait<1>();
+          publish_bias(it - 1);
+        }
+        if (it == n_tiles - 1) {
+          cp_async_wait<0>();
+          publish_bias(it);
+        }
+      };
+      auto refill_v = [&](int it) {
+        const int s = it % kStages;
+        const Tile tl = walk.at(it, p);
+        mbar_wait(bar_ev + 8 * s, ((it / kStages) & 1) ^ 1);
+        load_tile(sv + s * kTileBytes, tl.fresh ? &tv1 : &tv2, bar_v + 8 * s,
+                  tl.j0, h, b, ctid == 0);
+      };
+      if (wg == 1) {
+        load_tile(sq, &tq, bar_q, q0, h, b, ctid == 0);
+        for (int it = 0; it < kStages && it < n_tiles; ++it) {
+          refill_k(it);
+          refill_v(it);
         }
       }
-      ls0 += __shfl_xor_sync(0xffffffffu, ls0, 1);
-      ls0 += __shfl_xor_sync(0xffffffffu, ls0, 2);
-      ls1 += __shfl_xor_sync(0xffffffffu, ls1, 1);
-      ls1 += __shfl_xor_sync(0xffffffffu, ls1, 2);
-      l0 = l0 * a0 + ls0;
-      l1 = l1 * a1 + ls1;
-      m0 = mn0;
-      m1 = mn1;
-#pragma unroll
-      for (int n = 0; n < 16; ++n) {
-        o[4 * n] *= a0;
-        o[4 * n + 1] *= a0;
-        o[4 * n + 2] *= a1;
-        o[4 * n + 3] *= a1;
+      mbar_wait(bar_q, 0);
+
+      // round 0: S_0 alone
+      mbar_wait(bar_k, 0);
+      wg_fence();
+      issue_qk(sacc, qa, sk);
+      wg_wait<0>();
+      reg_fence(sacc);
+      mbar_wait(bar_b, 0);
+      softmax_tile(sacc, sbias + 2 * t, scale2, m0, m1, l0, l1, a0, a1);
+      release(bar_ek, lane);  // K_0 and its bias are read
+      if (wg == 1 && kStages < n_tiles) refill_k(kStages);
+      rescale_and_pack(o, sacc, a0, a1, pa);
+
+      // round it: S_it = Q K_it^T and O += P_{it-1} V_{it-1} in flight
+      // together; tile it's softmax runs while the PV product does
+      for (int it = 1; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        const uint32_t parity = (it / kStages) & 1;
+        const int sp = (it - 1) % kStages;
+        const uint32_t pparity = ((it - 1) / kStages) & 1;
+        mbar_wait(bar_k + 8 * s, parity);
+        wg_fence();
+        issue_qk(sacc, qa, sk + s * kTileBytes);
+        mbar_wait(bar_v + 8 * sp, pparity);
+        issue_pv(o, pa, sv + sp * kTileBytes);
+        wg_wait<1>();  // S_it
+        reg_fence(sacc);
+        mbar_wait(bar_b + 8 * s, parity);
+        softmax_tile(sacc, sbias + s * kBK + 2 * t, scale2, m0, m1, l0, l1,
+                     a0, a1);
+        release(bar_ek + 8 * s, lane);
+        wg_wait<0>();  // O += P_{it-1} V_{it-1}
+        reg_fence(o);
+        reg_fence(pa);
+        release(bar_ev + 8 * sp, lane);
+        // (with no product in flight: ptxas serializes the wgmma around a
+        // divergent branch inside the pipeline)
+        if (wg == 1) {
+          if (it + kStages < n_tiles) refill_k(it + kStages);
+          if (it - 1 + kStages < n_tiles) refill_v(it - 1 + kStages);
+        }
+        rescale_and_pack(o, sacc, a0, a1, pa);
       }
 
-      // ---- O += P V: the S accumulator is P's A fragments ---------------
-      uint32_t pa[8][4];
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        pa[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
-      }
-      mbar_wait(bar_v + 8 * s, parity);
+      // the last round: PV of the last tile alone
+      const int sp = (n_tiles - 1) % kStages;
+      mbar_wait(bar_v + 8 * sp, ((n_tiles - 1) / kStages) & 1);
       wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        // 16 keys = two 8-row groups (1024 bytes apart); the two 64-column
-        // halves of V are one box (16 KB) apart
-        wgmma_rs(o, pa[kk],
-                 smem_desc(sv + s * kTileBytes + kk * 2048, kHalfBytes, 1024));
-      }
-      wg_commit();
-      wg_wait_all();
+      issue_pv(o, pa, sv + sp * kTileBytes);
+      wg_wait<0>();
       reg_fence(o);
-      mbar_arrive(bar_e + 8 * s);  // this thread is done with the stage
+      reg_fence(pa);
     }
 
     // ---- normalise and store into [B, T, H*D] ---------------------------
@@ -860,7 +1053,8 @@ int launch(const void* q, const void* k1, const void* v1, const void* k2,
   const cudaError_t err = allow_smem<Mode>();
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  attention_tma_kernel<Mode><<<grid, kThreads, Smem<Mode>::kBytes, stream>>>(
+  attention_tma_kernel<Mode>
+      <<<grid, Smem<Mode>::kThreads, Smem<Mode>::kBytes, stream>>>(
       mq, mk1, mv1, mk2, mv2, p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,11 +2,11 @@
 quantized K/V alone (K6).
 
 Every wrapper runs one hand-written CUDA kernel, `csrc/attention_tma.cu`
-(`regione_attention_tma_fwd`: TMA ring, wgmma, one producer and two
-consumer warpgroups), instantiated for how the second K/V segment is
-stored: bf16 (`attention`, `attention_rows2`), or an int8 / int4 cache
-(`attention_rows2_quant`, `attention_quant`), whose codes the producer
-warps dequantize into the same bf16 stage.  It replaces these Pallas TPU
+(`regione_attention_tma_fwd`: TMA ring, wgmma, two consumer warpgroups),
+instantiated for how the second K/V segment is stored: bf16 (`attention`,
+`attention_rows2`), or an int8 / int4 cache (`attention_rows2_quant`,
+`attention_quant`), whose codes a producer warpgroup dequantizes into the
+same bf16 stage.  It replaces these Pallas TPU
 kernels of `regione_tpu/ops/flash_attention.py`:
 
   * `attention`  <- `_kv_resident_kernel` (K1, via `flash_attention`) and,

@@ -236,22 +236,27 @@ def test_quant_launch_refuses_what_the_kernel_does_not_take():
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_the_card(cuda_device):
-    """K1 and K2 on the card against their plain versions (bf16; the bound
-    chip_smoke.py states: 2e-2 of the output's scale)."""
-    rng = np.random.default_rng(0)
+@pytest.mark.parametrize("t,s,with_bias", [(70, 150, True), (13, 128, False),
+                                           (128, 384, True),
+                                           (193, 256, False)])
+def test_kernel_matches_plain_on_the_card(cuda_device, t, s, with_bias):
+    """K1 over S keys and K2 over S + 256 on the card against their plain
+    versions (bf16; the bound chip_smoke.py states: 2e-2 of the output's
+    scale).  Walks of 1 to 5 key tiles; T = 13 leaves the second consumer
+    warpgroup every row past T, T = 128 none, T = 193 one."""
+    rng = np.random.default_rng(t + s)
 
     def heads(t):
         x = torch.from_numpy(rng.standard_normal((B, t, H * D), np.float32))
         return x.to(cuda_device, torch.bfloat16).view(B, t, H, D).transpose(
             1, 2)
 
-    q, k, v, kc, vc = heads(70), heads(150), heads(150), heads(256), \
-        heads(256)
-    bias = torch.from_numpy(_bias(B, 150 + 256, 1)).to(cuda_device)
+    q, k, v, kc, vc = heads(t), heads(s), heads(s), heads(256), heads(256)
+    bias = torch.from_numpy(_bias(B, s + 256, 1)).to(cuda_device) \
+        if with_bias else None
+    b1 = bias[:, :s].contiguous() if with_bias else None
     for got, want in (
-            (fa.attention(q, k, v, bias[:, :150].contiguous()),
-             fa.attention_reference(q, k, v, bias[:, :150])),
+            (fa.attention(q, k, v, b1), fa.attention_reference(q, k, v, b1)),
             (fa.attention_rows2(q, k, v, kc, vc, bias),
              fa.attention_rows2_reference(q, k, v, kc, vc, bias))):
         err = (got.float() - want.float()).abs().max()
@@ -407,17 +412,23 @@ def test_refused_arguments_raise_before_any_launch(fake_lib):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 2])
-@pytest.mark.parametrize("s1,s2", [(5, 0), (131, 0), (0, 200), (5, 200),
-                                   (131, 200)])
-def test_hopper_kernel_matches_plain_on_the_card(cuda_device, b, s1, s2):
+@pytest.mark.parametrize("t,s1,s2,with_bias", [
+    (267, 5, 0, True), (267, 131, 0, True), (267, 0, 200, True),
+    (267, 5, 200, True), (267, 131, 200, True),
+    (13, 128, 0, False), (192, 256, 0, True), (193, 300, 0, False),
+    (256, 300, 200, True), (13, 5, 200, False)])
+def test_hopper_kernel_matches_plain_on_the_card(cuda_device, b, t, s1, s2,
+                                                 with_bias):
     """`regione_attention_tma_fwd` against its plain versions: ragged T
-    (267: two full 128-row blocks and a partial one), S1 and S2 off the
-    128-key tile, a whole key tile masked at -1e30, pad columns at -1e9,
-    head-split q/k/v views.  Tolerance 2e-2 of the output's scale (the
-    bound chip_smoke.py states: bf16 output, P rounded to bf16 before
+    (267: two full 128-row blocks and a partial one; 13 and 192: the last
+    block's second consumer warpgroup has every row past T; 193: one row;
+    256: none), S1 and S2 off the 128-key tile, walks of 1, 2, 3 and 5
+    tiles (the three-stage ring wraps), the segment seam at tile 1, 2 or 3,
+    with a bias (a whole key tile masked at -1e30, pad columns at -1e9) and
+    without, head-split q/k/v views.  Tolerance 2e-2 of the output's scale
+    (the bound chip_smoke.py states: bf16 output, P rounded to bf16 before
     normalisation in the kernel, after it in the plain version)."""
-    rng = np.random.default_rng(10 * s1 + s2 + b)
-    t = 267
+    rng = np.random.default_rng(10 * s1 + s2 + b + 1000 * t)
 
     def heads(rows):
         x = torch.from_numpy(rng.standard_normal((b, rows, H * D),
@@ -426,10 +437,12 @@ def test_hopper_kernel_matches_plain_on_the_card(cuda_device, b, s1, s2):
             .transpose(1, 2)
 
     q, k1, v1, k2, v2 = heads(t), heads(s1), heads(s1), heads(s2), heads(s2)
-    bias = _bias(b, s1 + s2, 3)
-    lo, hi = (s1, s1 + 128) if s2 else (0, min(s1, 128))
-    bias[:, lo:hi] = -1e30          # a whole tile (at S1 = 5: every key)
-    bias = torch.from_numpy(bias).to(cuda_device)
+    bias = None
+    if with_bias:
+        bias = _bias(b, s1 + s2, 3)
+        lo, hi = (s1, s1 + 128) if s2 else (0, min(s1, 128))
+        bias[:, lo:hi] = -1e30      # a whole tile (at S1 = 5: every key)
+        bias = torch.from_numpy(bias).to(cuda_device)
     if s2 == 0:
         got = fa.attention(q, k1, v1, bias)
         want = fa.attention_reference(q, k1, v1, bias)
@@ -444,18 +457,23 @@ def test_hopper_kernel_matches_plain_on_the_card(cuda_device, b, s1, s2):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("b", [1, 2])
-@pytest.mark.parametrize("s1,s2", [(0, 2176), (131, 2176), (131, 200),
-                                   (0, 258), (128, 8064)])
+@pytest.mark.parametrize("t,s1,s2,with_bias", [
+    (267, 0, 2176, True), (267, 131, 2176, True), (267, 131, 200, True),
+    (267, 0, 258, True), (267, 128, 8064, True),
+    (13, 0, 128, False), (192, 128, 256, True), (256, 0, 384, False),
+    (193, 5, 200, True)])
 def test_hopper_quant_kernel_matches_plain_on_the_card(cuda_device, bits, b,
-                                                       s1, s2):
+                                                       t, s1, s2, with_bias):
     """K2q (S1 > 0) and K6 (S1 = 0) on the Hopper kernel against their
     plain versions: S1 off the 128-key tile, S2 / 2 off it too (int4 at
-    S2 2176: each nibble half ends mid-tile), T ragged (267), the cache's
-    first key tile whole at -1e30, pad columns at -1e9, head-split q and
-    fresh K/V views, B 1 and 2.  Tolerance 2e-2 of the output's
-    scale (the bound chip_smoke.py states)."""
-    rng = np.random.default_rng(100 * bits + 10 * b + s1 + s2)
-    t = 267
+    S2 2176: each nibble half ends mid-tile), walks of 1 to 4 quantized
+    tiles and the seam at tile 1 or 2, T ragged (267; 13 and 192 leave the
+    last block's second consumer warpgroup every row past T, 193 one row,
+    256 none), with a bias (the cache's first key tile whole at -1e30, pad
+    columns at -1e9) and without, head-split q and fresh K/V views, B 1
+    and 2.  Tolerance 2e-2 of the output's scale (the bound chip_smoke.py
+    states)."""
+    rng = np.random.default_rng(100 * bits + 10 * b + s1 + s2 + 1000 * t)
 
     def heads(rows):
         x = torch.from_numpy(rng.standard_normal((b, rows, H * D),
@@ -467,10 +485,12 @@ def test_hopper_quant_kernel_matches_plain_on_the_card(cuda_device, bits, b,
     q, k1, v1 = heads(t), heads(s1), heads(s1)
     kc, ks = quant(heads(s2))
     vc, vs = quant(heads(s2))
-    bias = _bias(b, s1 + s2, 4)
-    # the cache's first key tile, whole (at S1 = 0 the first tile of all)
-    bias[:, s1:s1 + min(128, s2 // 2 if bits == 4 else s2)] = -1e30
-    bias = torch.from_numpy(bias).to(cuda_device)
+    bias = None
+    if with_bias:
+        bias = _bias(b, s1 + s2, 4)
+        # the cache's first key tile, whole (at S1 = 0 the first of all)
+        bias[:, s1:s1 + min(128, s2 // 2 if bits == 4 else s2)] = -1e30
+        bias = torch.from_numpy(bias).to(cuda_device)
     if s1 == 0:
         got = fa.attention(q, kc, vc, bias, k_scale=ks, v_scale=vs)
         want = fa.attention_quant_reference(q, kc, vc, ks, vs, bias)
