@@ -6,10 +6,12 @@ the plain reference, the metrics, the result line.
 
 Everything a cell is made of is found by name: the cell in
 `BENCHMARK.json` names its configuration (the file its entry gives) and
-its traffic (`mixes/<traffic>.json`); its limits are
-`limits/<cell>.json`; each metric is read by `end_to_end/<name>.py` or
-`metrics/<name>.py` (a `read(run)` returning a number or None), each
-kernel group is `kernel_groups/*.json`.
+its traffic (`mixes/<traffic>.json`); the configuration names its plain
+reference (`reference/<name>.py`, `sampler` where it names none; see
+`reference/__init__.py`); its limits are `limits/<cell>.json`; each
+metric is read by `end_to_end/<name>.py` or `metrics/<name>.py` (a
+`read(run)` returning a number or None), each kernel group is
+`kernel_groups/*.json`.
 
 Set-up: the weights and the requests from the seed (`inputs`), each
 request's condition latent by the probe over the reference's plain
@@ -42,8 +44,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from perfbench import devtrace, guard, inputs
-from perfbench.reference.sampler import Reference
+from perfbench import devtrace, guard, inputs, reference
 
 PB = Path(__file__).resolve().parent
 ROOT = PB.parent
@@ -80,12 +81,16 @@ def load_cell(paths: Paths, workload: str) -> dict:
         for mt in spec[k]:
             if cell["name"] in mt.get("workloads", [cell["name"]]):
                 metrics.append((k, mt))
+    config = json.loads((paths.root / conf["file"]).read_text())
+    ref_mod = reference.load(config)
     mix = json.loads((paths.mixes / f"{cell['traffic']}.json").read_text())
     if (mix["loop"], mix["clients"]) != ("closed", 1):
         raise SystemExit(f"mix {cell['traffic']!r}: the window drives one "
                          "client in a closed loop")
     return {"cell": cell,
-            "config": json.loads((paths.root / conf["file"]).read_text()),
+            "config": config,
+            "reference": ref_mod,
+            "layout": getattr(ref_mod, "layout", inputs.layout)(config),
             "mix": mix,
             "limits": json.loads((paths.limits / f"{workload}.json")
                                  .read_text()),
@@ -164,11 +169,14 @@ def _spanned(hook, kind: str, spans: list):
 
 class Control:
     """The reference in the program's place, its linears computed in the
-    precision below the configuration's (`config["control"]`)."""
+    precision below the configuration's (`config["control"]`).
+    `ref_mod`: the configuration's reference module."""
 
-    def __init__(self, config: dict, weights: dict, grid: int, device):
+    def __init__(self, config: dict, weights: dict, grid: int, device,
+                 ref_mod):
         lower = getattr(torch, config["control"])
-        self.ref = Reference(config, weights, grid, device, lower=lower)
+        self.ref = ref_mod.Reference(config, weights, grid, device,
+                                     lower=lower)
 
     def edit(self, req):
         out, info = self.ref.edit(req.noise, req.as_dict())
@@ -239,19 +247,20 @@ def run_once(workload: str, seed: int, seconds: float, trace: bool,
     "_info" (numbers for the log).  `system`: "program", or "control" (the
     reference in the precision below the configuration's)."""
     c = load_cell(paths, workload)
-    config, mix = c["config"], c["mix"]
+    config, mix, ref_mod, lay = (c["config"], c["mix"], c["reference"],
+                                 c["layout"])
     grid = mix["grid"]
     on_card = torch.device(device).type == "cuda"
     traced = trace and on_card
 
     t = time.perf_counter()
     gen = generator(device, seed)
-    weights = inputs.make_weights(config, gen, device)
+    weights = inputs.make_weights(config, gen, device, lay)
     reqs = inputs.make_requests(config, mix, seed, gen, device)
     sync(device)
     setup = {"weights_s": time.perf_counter() - t}
     t = time.perf_counter()
-    probe_ref = Reference(config, weights, grid, device)
+    probe_ref = ref_mod.Reference(config, weights, grid, device)
     for r in reqs:
         inputs.probe(probe_ref, r, mix["probe_iters"])
     del probe_ref
@@ -264,7 +273,7 @@ def run_once(workload: str, seed: int, seconds: float, trace: bool,
     if system == "program":
         sut = Program(config, weights, grid, device, spans)
     else:
-        sut = Control(config, weights, grid, device)
+        sut = Control(config, weights, grid, device, ref_mod)
     setup["build_s"] = time.perf_counter() - t
     t = time.perf_counter()
     if system == "program":       # the control builds and compiles nothing
@@ -336,8 +345,8 @@ def run_once(workload: str, seed: int, seconds: float, trace: bool,
     if on_card:
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    readings, ref_info = reference_readings(config, grid, device, seed, reqs,
-                                            outs, edits)
+    readings, ref_info = reference_readings(ref_mod, lay, config, grid,
+                                            device, seed, reqs, outs, edits)
     ref_s = time.perf_counter() - t
     checks, failed, ok = judge(readings, c["limits"])
 
@@ -372,12 +381,14 @@ def run_once(workload: str, seed: int, seconds: float, trace: bool,
     return result
 
 
-def reference_readings(config, grid, device, seed, reqs, outs, edits):
-    """The reference edit of every request of the pool, over the weights
-    drawn again from the seed, and each window edit's readings against
-    its request's.  Returns (readings, {"margin", "edited"})."""
-    ref = Reference(config, inputs.make_weights(
-        config, generator(device, seed), device), grid, device)
+def reference_readings(ref_mod, lay, config, grid, device, seed, reqs,
+                       outs, edits):
+    """The reference edit (`ref_mod.Reference`) of every request of the
+    pool, over the weights drawn again from the seed in the layout `lay`,
+    and each window edit's readings against its request's.  Returns
+    (readings, {"margin", "edited"})."""
+    ref = ref_mod.Reference(config, inputs.make_weights(
+        config, generator(device, seed), device, lay), grid, device)
     refs, margin = {}, math.inf
     with torch.inference_mode():
         for r in reqs:

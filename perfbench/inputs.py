@@ -9,6 +9,8 @@ its shape and how it is drawn:
   * a norm scale: uniform in [0.8, 1.2] (not 1, so a kernel that drops a
     scale differs); a LayerNorm bias and the connector's scale factor:
     uniform in +-0.1.
+A configuration whose reference module gives a `layout` of its own is
+drawn in that one instead: the harness hands it to `make_weights`.
 Tensors drawn alike share one flat buffer in the served dtype, filled by
 one `uniform_` on a CUDA generator: a few large calls, and the same bits
 for the same seed on every run.  The tensors are views of the buffers.
@@ -116,13 +118,16 @@ def param_count(config: dict) -> int:
     return sum(math.prod(e[1]) for e in layout(config))
 
 
-def make_weights(config: dict, gen: torch.Generator, device) -> dict:
+def make_weights(config: dict, gen: torch.Generator, device,
+                 entries: list | None = None) -> dict:
     """{name: tensor} drawn from `gen`, one `uniform_` per group of
-    tensors drawn alike, in the configuration's dtype on `device`."""
+    tensors drawn alike, in the configuration's dtype on `device`, in the
+    layout `entries` (`layout(config)` where none is given)."""
     dt = getattr(torch, config["dtype"])
     weights = {}
-    for (draw, fan_in), entries in _groups(layout(config)).items():
-        n = sum(math.prod(e[1]) for e in entries)
+    groups = _groups(entries if entries is not None else layout(config))
+    for (draw, fan_in), group in groups.items():
+        n = sum(math.prod(e[1]) for e in group)
         buf = torch.empty(n, dtype=dt, device=device)
         if draw == W:
             lim = 1.0 / math.sqrt(fan_in)
@@ -132,7 +137,7 @@ def make_weights(config: dict, gen: torch.Generator, device) -> dict:
         else:
             buf.uniform_(-0.1, 0.1, generator=gen)
         off = 0
-        for name, shape, _, _ in entries:
+        for name, shape, _, _ in group:
             size = math.prod(shape)
             weights[name] = buf[off:off + size].view(shape)
             off += size
