@@ -352,10 +352,10 @@ def main(argv=None):
 
     pipe = build_pipeline(args)
     if args.print_plan:
-        from regione_tpu_torch.core.schedule import (
-            build_sigmas, build_stage_plan, calculate_shift, describe_plan)
-        plan = build_stage_plan(pipe.re, build_sigmas(
-            pipe.re.num_inference_steps, mu=calculate_shift(4096)), pipe.gamma)
+        from regione_tpu_torch.core.schedule import (build_stage_plan,
+                                                     describe_plan)
+        plan = build_stage_plan(pipe.re, pipe.flow_shift.sigmas(
+            pipe.re.num_inference_steps, 4096), pipe.gamma)
         print(describe_plan(plan))
     if args.num_warmup_runs:
         # warm on the first real input, so no timed edit pays first-call

@@ -18,11 +18,17 @@ traced against this static plan, so XLA sees straight-line fixed-shape code
 inside a segment.
 
 Sigma math mirrors diffusers' FlowMatchEulerDiscreteScheduler with dynamic
-("exponential") shifting as used by all five backends:
+("exponential") shifting, as every backend's scheduler config sets it:
   - base sigmas  : linspace(1, 1/steps, steps)
   - time shift   : sigma' = e^mu / (e^mu + (1/sigma - 1))
-  - mu           : calculate_shift(image_seq_len)  (reference utils.py:18-28)
+  - mu           : calculate_shift(image_seq_len)  (reference utils.py:18-28),
+                   over the backend's own (base, max) sequence lengths and
+                   shifts: FLUX.1 / Step1X 256 -> 4096 tokens, 0.5 -> 1.15;
+                   Qwen-Image 256 -> 8192, 0.5 -> 0.9 (`FlowShift`)
+  - terminal     : Qwen-Image stretches the shifted sigmas so that the last
+                   one is its `shift_terminal` (0.02); FLUX.1 does not
   - timesteps    : sigma * num_train_timesteps (=1000); terminal sigma 0.
+The JAX package computes FLUX.1's schedule for every backend.
 """
 
 from __future__ import annotations
@@ -55,12 +61,15 @@ def build_sigmas(
     mu: float | None = None,
     shift: float = 1.0,
     use_dynamic_shifting: bool = True,
+    shift_terminal: float | None = None,
 ) -> np.ndarray:
     """Return sigmas of length num_steps + 1 (terminal 0 appended), fp32.
 
     With use_dynamic_shifting (the Flux-family default) applies the
     exponential time shift with exponent mu; otherwise the static shift
-    sigma' = shift*sigma / (1 + (shift-1)*sigma).
+    sigma' = shift*sigma / (1 + (shift-1)*sigma).  With shift_terminal,
+    diffusers' `stretch_shift_to_terminal` follows: 1 - sigma scaled so
+    that the last sigma before the terminal 0 is shift_terminal.
     """
     sigmas = np.linspace(1.0, 1.0 / num_steps, num_steps, dtype=np.float64)
     if use_dynamic_shifting:
@@ -69,7 +78,43 @@ def build_sigmas(
         sigmas = math.exp(mu) / (math.exp(mu) + (1.0 / sigmas - 1.0))
     else:
         sigmas = shift * sigmas / (1.0 + (shift - 1.0) * sigmas)
+    if shift_terminal is not None:
+        one_minus = 1.0 - sigmas
+        scale = one_minus[-1] / (1.0 - shift_terminal)
+        sigmas = 1.0 - one_minus / scale
     return np.concatenate([sigmas, [0.0]]).astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowShift:
+    """A backend's dynamic shift, as its `scheduler_config.json` gives it
+    (diffusers' FlowMatchEulerDiscreteScheduler with
+    `use_dynamic_shifting` and the exponential time shift): mu from the
+    noise token count, interpolated between (base_image_seq_len,
+    base_shift) and (max_image_seq_len, max_shift); the sigmas stretched
+    to `shift_terminal` where it is set."""
+
+    base_image_seq_len: int = 256
+    max_image_seq_len: int = 4096
+    base_shift: float = 0.5
+    max_shift: float = 1.15
+    shift_terminal: float | None = None
+
+    def sigmas(self, num_steps: int, image_seq_len: int) -> np.ndarray:
+        mu = calculate_shift(image_seq_len, self.base_image_seq_len,
+                             self.max_image_seq_len, self.base_shift,
+                             self.max_shift)
+        return build_sigmas(num_steps, mu=mu,
+                            shift_terminal=self.shift_terminal)
+
+
+# FLUX.1 (Kontext dev) and Step1X-Edit
+FLUX_SHIFT = FlowShift()
+# Qwen-Image / Qwen-Image-Edit (huggingface.co/Qwen/Qwen-Image-Edit,
+# scheduler/scheduler_config.json)
+QWEN_IMAGE_SHIFT = FlowShift(base_image_seq_len=256, max_image_seq_len=8192,
+                             base_shift=0.5, max_shift=0.9,
+                             shift_terminal=0.02)
 
 
 # ---------------------------------------------------------------------------

@@ -296,13 +296,24 @@ def _layer_kv(cache, key: str, i: int):
 
 def _store_kv(cfg: MMDiTConfig, cache, key: str, i: int, x):
     """Write mode: layer i's K or V rows into the cache, in place
-    (quantized rows and scales under cache_int8 / cache_int4)."""
-    if cfg.cache_quant:
-        rows, scales = cfg.quantize_kv(x)
-        cache[key][i].copy_(rows)
-        cache[key + "_s"][i].copy_(scales)
-    else:
-        cache[key][i].copy_(x)
+    (quantized rows and scales under cache_int8 / cache_int4), in a span
+    `model.cache_write` (CUDA events on x; attrs: the block index, the
+    cache `key`, the rows, the bytes written and the format: int8, int4
+    or the model dtype's name)."""
+    fmt = ("int4" if cfg.cache_int4 else "int8" if cfg.cache_int8
+           else str(cfg.dtype).removeprefix("torch."))
+    with telemetry.span("model.cache_write", events_on=x, index=i, key=key,
+                        rows=x.shape[-2], format=fmt) as sp:
+        if cfg.cache_quant:
+            rows, scales = cfg.quantize_kv(x)
+            cache[key][i].copy_(rows)
+            cache[key + "_s"][i].copy_(scales)
+            written = (rows.numel() * rows.element_size()
+                       + scales.numel() * scales.element_size())
+        else:
+            cache[key][i].copy_(x)
+            written = x.numel() * x.element_size()
+        sp.set(bytes=written)
 
 
 def rags_bias(sel_img_ids, s_kv: int, t_txt: int, batch: int, txt_bias):
@@ -385,7 +396,8 @@ class MMDiT(nn.Module):
                  mode, cache, sel_img_ids, txt_bias):
         """`forward`, in host-only `utils.telemetry` spans: `model.embed`,
         `model.double_block` / `model.single_block` (attr `index`) and
-        `model.final`."""
+        `model.final`; in write mode each block's span holds two
+        `model.cache_write` spans (K, V), which time the device."""
         cfg = self.cfg
         if mode == MODE_WRITE and cache is None:
             cache = init_cache(cfg, img.shape[0], img.shape[1], img.device,

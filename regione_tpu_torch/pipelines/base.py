@@ -10,6 +10,8 @@ Counterpart of `regione_tpu/pipelines/base.py`.  Latent path:
   * classifier-free guidance as a batch of two ([cond, uncond]) through the
     backbone, combined by `combine_cfg`; FLUX's distilled guidance scale
     rides in `EditInputs.guidance`;
+  * the sigmas come from the backend's scheduler constants (`flow_shift`),
+    and with the gamma table they set the stage plan;
   * `edit_latents` runs the dense baseline when `RegionEHelper.disable()`
     has cleared `_regione_enabled`;
   * `edit_latents_batch` edits a group of same-geometry requests in one
@@ -49,8 +51,8 @@ import torch.nn.functional as F
 from regione_tpu_torch.core.config import RegionEParams
 from regione_tpu_torch.core.gamma import gamma_for
 from regione_tpu_torch.core.sampler import RegionESampler
-from regione_tpu_torch.core.schedule import (build_sigmas, build_stage_plan,
-                                             calculate_shift)
+from regione_tpu_torch.core.schedule import (FLUX_SHIFT, FlowShift,
+                                             build_stage_plan)
 from regione_tpu_torch.models.layers import gather_rope, rope_table
 from regione_tpu_torch.models.mmdit import (MODE_DENSE, MODE_RAGS,
                                             MODE_WRITE, MMDiT, init_cache)
@@ -94,6 +96,9 @@ class EditPipelineBase:
     # uncond text when the caller passes none: "" (Step1X); the Qwen family
     # overrides with " "
     default_negative_prompt: str = ""
+    # the scheduler's dynamic shift (its scheduler_config.json): FLUX.1's;
+    # the Qwen family overrides with Qwen-Image's
+    flow_shift: FlowShift = FLUX_SHIFT
 
     def __init__(self, model: MMDiT, re_params: RegionEParams | None = None,
                  gamma: np.ndarray | None = None,
@@ -220,8 +225,8 @@ class EditPipelineBase:
         s_cond = s_noise if s_cond is None else s_cond
         key = (grid_h, grid_w, t_txt, batch_cache, s_cond)
         if key not in self._samplers:
-            sigmas = build_sigmas(self.re.num_inference_steps,
-                                  mu=calculate_shift(s_noise))
+            sigmas = self.flow_shift.sigmas(self.re.num_inference_steps,
+                                            s_noise)
             plan = build_stage_plan(self.re, sigmas, self.gamma)
             s_kv = s_noise + s_cond
             dev = self.device

@@ -11,6 +11,9 @@ Counterpart of `regione_tpu/pipelines/qwen_image_edit.py`:
     arange(n) - (n - n // 2); text rows get diagonal ids offset by
     max(h // 2, w // 2) over all images;
   * the uncond prompt is " " (a single space) unless the caller gives one;
+  * Qwen-Image's scheduler: mu over 256 -> 8192 noise tokens between 0.5
+    and 0.9, the sigmas stretched to end at 0.02 (`QWEN_IMAGE_SHIFT`; the
+    JAX package runs FLUX.1's schedule here);
   * Plus's dual-size references: each image goes to the prompt encoder at
     ~384^2 area and to the VAE at ~1024^2 area, both multiples of 32.
 The backbone is the joint double-stream MMDiT (presets "qwen-image-edit",
@@ -25,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from regione_tpu_torch.core.schedule import QWEN_IMAGE_SHIFT
 from regione_tpu_torch.pipelines.base import EditPipelineBase
 
 # reference RegionE/QwenImageEditPlus constants
@@ -47,6 +51,7 @@ class QwenImageEditPipeline(EditPipelineBase):
     backend = "qwen-image-edit"
     uses_batch_cfg = True
     default_negative_prompt = " "
+    flow_shift = QWEN_IMAGE_SHIFT
 
     def __init__(self, model, re_params=None, gamma=None,
                  true_cfg_scale: float = 4.0):

@@ -66,6 +66,7 @@ from regione_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
 from regione_tpu_torch.pipelines.base import EditInputs, EditPipelineBase
 from regione_tpu_torch.weights.from_jax import mmdit_from_jax
 from oracle import oracle_edit
+from torch_cpu import jax_schedule  # noqa: F401 (fixture)
 from torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -221,6 +222,7 @@ def test_headline_params_at_dev_equal_the_jax_count():
     assert _bench_r04()["params"] == 1_259_147_328
 
 
+@pytest.mark.usefixtures("jax_schedule")
 @pytest.mark.parametrize("preset,backend,jpipe", [
     ("tiny", "step1x-edit", JStep1XEditPipeline),
     ("tiny-qwen", "qwen-image-edit", JQwenImageEditPipeline),

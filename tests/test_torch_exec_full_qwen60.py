@@ -32,6 +32,7 @@ from regione_tpu.ops import quant as jquant
 from regione_tpu.pipelines import qwen_image_edit as jqwen
 from regione_tpu_torch.bench import exec_full_qwen60
 from regione_tpu_torch.weights.from_jax import convert_params
+from torch_cpu import jax_schedule  # noqa: F401 (fixture)
 from torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -89,6 +90,7 @@ def _port_argv(params, *extra):
             "--device", "cpu", *extra]
 
 
+@pytest.mark.usefixtures("jax_schedule")
 @pytest.mark.parametrize("tp", [1, 2])
 def test_exec_full_qwen60_matches_the_jax_script(exec60_jax, tp, tmp_path,
                                                  capsys):

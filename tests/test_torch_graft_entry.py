@@ -31,6 +31,7 @@ import torch
 import __graft_entry__ as jentry
 from regione_tpu_torch import graft_entry
 from regione_tpu_torch.weights import from_jax
+from torch_cpu import jax_schedule  # noqa: F401 (fixture)
 from torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 PRESETS = ("tiny-tp", "tiny-qwen-tp")
@@ -103,6 +104,7 @@ def _jax_dryrun_stats(capsys):
     return stats
 
 
+@pytest.mark.usefixtures("jax_schedule")
 def test_dryrun_multichip_with_the_jax_params_matches_jax(capsys):
     params = {}
     for preset, (seed, _) in graft_entry.JAX_PAIRS.items():

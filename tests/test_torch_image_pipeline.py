@@ -43,6 +43,7 @@ from regione_tpu_torch.pipelines import flux_kontext as tfk
 from regione_tpu_torch.pipelines import qwen_image_edit as tqie
 from regione_tpu_torch.pipelines import step1x_edit as tsx
 from regione_tpu_torch.weights.from_jax import mmdit_from_jax, vae_from_jax
+from torch_cpu import jax_schedule  # noqa: F401 (fixture)
 from torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 VAES = {
@@ -164,6 +165,7 @@ def test_prepare_inputs_matches_jax(backend):
         assert got.guidance.tolist() == [2.5]
 
 
+@pytest.mark.usefixtures("jax_schedule")
 @pytest.mark.parametrize("backend", list(BACKENDS))
 def test_call_matches_jax_given_the_same_noise(backend, monkeypatch):
     jpipe, tpipe, _ = make_pair(backend)

@@ -4,7 +4,8 @@
 blocks only, `txt_norm`) with batch-2 true CFG at scale 4 and the
 norm-preserving combine, with a bf16-layout, an int8 and an int4 KV cache;
 and `QwenImageEditPlusPipeline` with two condition grids (S_cond > S_noise).
-Same params and numpy inputs in both frameworks, on the CPU in fp32.  Stats
+Same params and numpy inputs in both frameworks, on the CPU in fp32, and
+the JAX package's schedule in both (`jax_schedule`).  Stats
 must be equal; latents agree to 5e-4, the bound of tests/test_torch_pipeline.py
 (fp32 over 28 Euler steps, the CFG scale amplifying summation-order
 differences).  The Qwen rotary ids, `combine_cfg` and `calculate_dimensions`
@@ -30,7 +31,12 @@ from regione_tpu_torch.models.presets import get_config
 from regione_tpu_torch.pipelines import qwen_image_edit as tqie
 from regione_tpu_torch.pipelines.base import EditInputs
 from regione_tpu_torch.weights.from_jax import mmdit_from_jax
+from tests.torch_cpu import jax_schedule  # noqa: F401 (fixture)
 from tests.torch_cpu import one_torch_thread  # noqa: F401 (autouse)
+
+# the port's Qwen pipelines run JAX's (FLUX.1's) schedule here: the JAX
+# package has no other (tests/torch_cpu.py)
+pytestmark = pytest.mark.usefixtures("jax_schedule")
 
 GRID, T_TXT = 8, 4
 S = GRID * GRID

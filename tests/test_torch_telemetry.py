@@ -9,6 +9,8 @@
     the plan; `depth` block spans per forward; every child inside its
     parent's host interval; the edit's launch and host-time attrs;
   * recording leaves the latents bit-identical;
+  * each write forward's blocks hold a `model.cache_write` span for K and
+    one for V, with their attrs (model-dtype and int8 caches);
   * in a CPU + CUDA trace (`telemetry.trace`) each span starts where its
     own user annotation does on the trace's clock; under a profile of CUDA
     activity alone the spans record with no annotation;
@@ -23,6 +25,7 @@
 """
 
 import collections
+import dataclasses
 import json
 import threading
 
@@ -36,6 +39,7 @@ from regione_tpu_torch.models.presets import get_config
 from regione_tpu_torch.models.text_encoders import MockTextEncoder
 from regione_tpu_torch.models.vae import VAEConfig
 from regione_tpu_torch.pipelines.base import EditInputs
+from regione_tpu_torch.pipelines.qwen_image_edit import QwenImageEditPipeline
 from regione_tpu_torch.pipelines.serve import EditRequest, EditService
 from regione_tpu_torch.pipelines.step1x_edit import Step1XEditPipeline
 from regione_tpu_torch.utils import telemetry
@@ -242,6 +246,67 @@ def test_recording_leaves_the_latents_bit_identical(edit):
         got, got_stats = pipe.edit_latents(lat0, ctx, GRID, GRID)
     assert telemetry.spans()
     assert torch.equal(got, out) and got_stats == stats
+
+
+# -- the cache writes --------------------------------------------------------
+
+def _qwen_int8():
+    """A tiny Qwen-Image-Edit pipeline with an int8 K/V cache, true CFG 4,
+    and its inputs (pipe, lat0, ctx)."""
+    cfg = dataclasses.replace(get_config("tiny-qwen"), cache_int8=True)
+    pipe = QwenImageEditPipeline(init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"), RE)
+    gen = torch.Generator().manual_seed(1)
+    rope = pipe.build_rope(GRID, GRID, T_TXT)
+    ctx = EditInputs(
+        txt=torch.randn(2, T_TXT, cfg.txt_in_dim, generator=gen),
+        cond_latent=torch.randn(1, GRID * GRID, cfg.in_channels,
+                                generator=gen),
+        rope_img=rope[0], rope_txt=rope[1])
+    lat0 = torch.randn(1, GRID * GRID, cfg.in_channels, generator=gen)
+    return pipe, lat0, ctx
+
+
+@pytest.mark.parametrize("which", ["step1x-fp32", "qwen-int8"])
+def test_each_write_forward_stores_k_and_v_of_every_block(edit, which):
+    """Two `model.cache_write` spans (K, then V) in each block span of a
+    write forward, none elsewhere; their attrs: the block's index, the
+    cache key, the rows, the bytes written and the format.  None while
+    nothing records."""
+    if which == "qwen-int8":
+        pipe, lat0, ctx = _qwen_int8()
+    else:
+        pipe, lat0, ctx = edit[:3]
+    cfg = pipe.cfg
+    pipe.edit_latents(lat0, ctx, GRID, GRID)
+    assert telemetry.spans() == []
+    with telemetry.recording():
+        pipe.edit_latents(lat0, ctx, GRID, GRID)
+    spans = telemetry.spans()
+    forwards = [s for s in spans if s.name.startswith("pipeline.") and
+                s.name.endswith("_forward")]
+    n_write = sum(f.attrs.get("write", False) for f in forwards)
+    writes = [s for s in spans if s.name == "model.cache_write"]
+    assert n_write >= 2            # the partition step and the refresh
+    assert len(writes) == 2 * n_write * (cfg.depth_double + cfg.depth_single)
+    for fw in forwards:
+        for blk in _children(spans, fw)[1:-1]:
+            got = [(k.name, k.attrs["key"], k.attrs["index"])
+                   for k in _children(spans, blk)]
+            if not fw.attrs.get("write"):
+                assert got == []
+                continue
+            tag = "d" if blk.name == "model.double_block" else "s"
+            assert got == [("model.cache_write", tag + key,
+                             blk.attrs["index"]) for key in "kv"]
+    s_kv = 2 * GRID * GRID
+    values = 2 * cfg.heads * s_kv * cfg.head_dim     # a CFG batch of two
+    want = ({"format": "int8", "bytes": values + 4 * values // cfg.head_dim}
+            if which == "qwen-int8" else
+            {"format": "float32", "bytes": 4 * values})
+    for w in writes:
+        assert w.attrs["rows"] == s_kv
+        assert {k: w.attrs[k] for k in want} == want
 
 
 # -- the profiler's clock ----------------------------------------------------

@@ -18,6 +18,7 @@ import torch.distributed as dist
 
 from regione_tpu_torch.core.config import RegionEParams
 from regione_tpu_torch.core.gamma import gamma_for
+from regione_tpu_torch.core.schedule import FLUX_SHIFT
 from regione_tpu_torch.models import layers
 from regione_tpu_torch.models.mmdit import MMDiT
 from regione_tpu_torch.models.presets import get_config
@@ -33,6 +34,9 @@ from regione_tpu_torch.utils import memplan
 from regione_tpu_torch.weights import checkpoint
 
 PIPES = {"step1x": Step1XEditPipeline, "qwen": QwenImageEditPipeline}
+# the parent holds these loops to the JAX package's, which runs FLUX.1's
+# schedule for Qwen too: what `torch_cpu.jax_schedule` does in a test
+QwenImageEditPipeline.flow_shift = FLUX_SHIFT
 
 
 def _model(case, **flags):
