@@ -287,6 +287,17 @@ def init_cache(cfg: MMDiTConfig, batch: int, s_kv_img: int, device,
     return cache
 
 
+def reset_cache(cache):
+    """Refill a cache in place as `init_cache` fills a new one (zeros,
+    and 1e-12 in the scale leaves); returns it."""
+    for key, x in cache.items():
+        if key.endswith("_s"):
+            x.fill_(1e-12)
+        else:
+            x.zero_()
+    return cache
+
+
 def _layer_kv(cache, key: str, i: int):
     """Layer i's cache entry: a tensor, or (rows, scales) when quantized."""
     if key + "_s" in cache:

@@ -22,11 +22,20 @@ Counterpart of `regione_tpu/pipelines/base.py`.  Latent path:
     dp rank denoises its share of the requests on its tp group;
   * a model sharded by `parallel.sharding.shard_params` carries its mesh,
     which `edit_latents` hands to the sampler;
+  * one K / V cache a pipeline (`_kv_cache`), kept between edits at fixed
+    addresses and refilled as `init_cache` fills a new one at each edit;
+    freed, with the RAGS graphs, before an offloaded prompt encoder comes
+    to the card (`utils.memplan` places it so for a card without them);
+  * on a card and an unsharded model, each computed RAGS forward replays
+    from a CUDA graph, one for each capacity bucket and input shape
+    (`RagsGraphs`); the dense forwards, the reuse steps and the sampler's
+    other work run eagerly, as do CPU runs and sharded models;
   * spans of `utils.telemetry`: `pipeline.edit` around each
     `edit_latents` / `edit_latents_batch` call (the edit: its attrs gain
-    the kernel wrappers' launches and host ns), `pipeline.dense_forward` /
-    `pipeline.rags_forward` around each call of the two hooks, all with
-    CUDA events on a card.
+    the kernel wrappers' launches and host ns and the edit's
+    `pipeline.rags_graph.{replays,captures,eager}` counts of
+    `RagsGraphs`), `pipeline.dense_forward` / `pipeline.rags_forward`
+    around each call of the two hooks, all with CUDA events on a card.
 Image path (`prepare_inputs`, `__call__`): the target resolution policy,
 the VAE encode of every reference, the prompt embeddings of both CFG halves
 (padded to one length, the padding masked by a -1e9 text bias), the initial
@@ -55,7 +64,8 @@ from regione_tpu_torch.core.schedule import (FLUX_SHIFT, FlowShift,
                                              build_stage_plan)
 from regione_tpu_torch.models.layers import gather_rope, rope_table
 from regione_tpu_torch.models.mmdit import (MODE_DENSE, MODE_RAGS,
-                                            MODE_WRITE, MMDiT, init_cache)
+                                            MODE_WRITE, MMDiT, init_cache,
+                                            reset_cache)
 from regione_tpu_torch.models.vae import pack_latents, unpack_latents
 from regione_tpu_torch.parallel.sharding import dp_all_gather
 from regione_tpu_torch.utils import telemetry
@@ -109,6 +119,8 @@ class EditPipelineBase:
         self.gamma = gamma if gamma is not None else gamma_for(self.backend)
         self.true_cfg_scale = true_cfg_scale
         self._samplers: dict[tuple, RegionESampler] = {}
+        self._kv = None                # (shape, cache) of `_kv_cache`
+        self._rags_graphs = RagsGraphs(self)
         self._regione_enabled = True   # RegionEHelper.enable() / disable()
         self.vae = None
         self.text_encoder = None
@@ -157,6 +169,10 @@ class EditPipelineBase:
     def _expand_cfg(self, x):
         return torch.cat([x, x], dim=0) if self.do_cfg else x
 
+    def _cfg_rows(self, b: int) -> int:
+        """The backbone's batch rows for b latent rows."""
+        return 2 * b if self.do_cfg else b
+
     def _combine(self, v, sigma: float):
         v = v.float()
         if self.do_cfg:
@@ -193,14 +209,34 @@ class EditPipelineBase:
     def rags_forward(self, lat_act, sigma, cache, ids, ctx: EditInputs):
         """Gathered edited-token forward against the frozen KV cache; ids
         [K] (one partition) or [B, K] (one per image, expanded with the
-        CFG rows)."""
+        CFG rows).  On a card and an unsharded model the forward up to the
+        velocity replays from a CUDA graph (`RagsGraphs`); over CPU
+        tensors or a sharded model (collectives) it runs eagerly
+        (`_rags`)."""
         with telemetry.span("pipeline.rags_forward", events_on=lat_act,
                             rows=lat_act.shape[1]):
-            return self._rags(lat_act, sigma, cache, ids, ctx)
+            if not self._graphable(lat_act):
+                self._rags_graphs.eager += 1
+                return self._rags(lat_act, sigma, cache, ids, ctx)
+            # the combine's fp32 cast copies the graph's static output
+            v = self._rags_graphs(lat_act, sigma, cache, ids, ctx)
+            return self._combine(v, sigma), cache
+
+    def _graphable(self, x) -> bool:
+        """Whether a RAGS forward over x may replay from a graph: a CUDA
+        tensor and an unsharded model."""
+        return x.is_cuda and self.model.tp is None
 
     def _rags(self, lat_act, sigma, cache, ids, ctx):
+        t = self._timestep(self._cfg_rows(lat_act.shape[0]), sigma,
+                           lat_act.device)
+        v = self._rags_model(lat_act, t, cache, ids, ctx)
+        return self._combine(v, sigma), cache
+
+    def _rags_model(self, lat_act, t, cache, ids, ctx):
+        """The RAGS forward up to the backbone's velocity, device work
+        alone (what a RAGS graph captures): t is the timestep tensor."""
         img_in = self._expand_cfg(lat_act.to(self.cfg.dtype))
-        t = self._timestep(img_in.shape[0], sigma, lat_act.device)
         # the sampler pads ids with s_noise, which is a REAL cache row (the
         # first condition token); remap pads past the cache to s_kv, which
         # the RAGS bias masks and its stale-row scatter drops
@@ -210,11 +246,11 @@ class EditPipelineBase:
         if ids_cache.dim() == 2:
             ids_cache = self._expand_cfg(ids_cache)
         rope_act = gather_rope(ctx.rope_img, ids_cache)
-        v, cache = self.model(
+        v, _ = self.model(
             img_in, ctx.txt, t, rope_act, ctx.rope_txt, pooled=ctx.pooled,
             guidance=ctx.guidance, mode=MODE_RAGS, cache=cache,
             sel_img_ids=ids_cache, txt_bias=ctx.txt_bias)
-        return self._combine(v, sigma), cache
+        return v
 
     # -- sampler construction ------------------------------------------------
 
@@ -229,17 +265,45 @@ class EditPipelineBase:
                                             s_noise)
             plan = build_stage_plan(self.re, sigmas, self.gamma)
             s_kv = s_noise + s_cond
-            dev = self.device
-
-            def make_cache():
-                return init_cache(self.cfg, batch_cache, s_kv, dev,
-                                  self.model.tp_size)
-
             self._samplers[key] = RegionESampler(
                 plan, self.re, grid_h=grid_h, grid_w=grid_w,
                 dense_forward=self.dense_forward,
-                rags_forward=self.rags_forward, init_cache=make_cache)
+                rags_forward=self.rags_forward,
+                init_cache=lambda: self._kv_cache(batch_cache, s_kv))
         return self._samplers[key]
+
+    def _kv_cache(self, batch: int, s_kv: int):
+        """The K / V cache of `batch` rows over `s_kv` image rows: one a
+        pipeline, kept between edits at fixed addresses (the RAGS graphs
+        read it there), refilled as `init_cache` fills a new one each time
+        a sampler asks for it.  A request for another shape frees it, and
+        the graphs that read it, before the new one is made."""
+        shape = (batch, s_kv, self.model.tp_size, self.device)
+        if self._kv is not None and self._kv[0] == shape:
+            return reset_cache(self._kv[1])
+        self._free_kv()
+        # normal tensors, which a caller may refill outside inference mode
+        with torch.inference_mode(False):
+            self._kv = (shape, init_cache(self.cfg, batch, s_kv, self.device,
+                                          self.model.tp_size))
+        return self._kv[1]
+
+    def _free_kv(self) -> None:
+        """Drop the kept K / V cache and the RAGS graphs that read it."""
+        self._kv = None
+        self._rags_graphs.clear()
+
+    @contextlib.contextmanager
+    def _edit_span(self, events_on, **attrs):
+        """The `pipeline.edit` span of one edit call; its attrs gain the
+        edit's `pipeline.rags_graph.<count>` of `RagsGraphs.COUNTS`."""
+        graphs = self._rags_graphs
+        before = graphs.counts()
+        with telemetry.span("pipeline.edit", events_on=events_on, edit=True,
+                            backend=self.backend, **attrs) as s:
+            yield
+            s.set(**{f"pipeline.rags_graph.{k}": b - a for k, a, b in zip(
+                RagsGraphs.COUNTS, before, graphs.counts())})
 
     # -- top-level latent-space edit -----------------------------------------
 
@@ -250,9 +314,8 @@ class EditPipelineBase:
         """latents0 [1, S_noise, C] initial noise -> (latents fp32, stats);
         stats is None for the dense baseline, which runs when `dense_only`
         is set or RegionE is disabled (`RegionEHelper.disable()`)."""
-        with telemetry.span("pipeline.edit", events_on=latents0, edit=True,
-                            grid=(grid_h, grid_w), batch=latents0.shape[0],
-                            backend=self.backend):
+        with self._edit_span(latents0, grid=(grid_h, grid_w),
+                             batch=latents0.shape[0]):
             return self._edit(latents0, ctx, grid_h, grid_w, dense_only,
                               forced_mask)
 
@@ -287,10 +350,8 @@ class EditPipelineBase:
         "tp" by `shard_params` or whole.  The group shares one capacity
         bucket, the largest count over all B.  Every rank returns all B
         latents and stats."""
-        with telemetry.span("pipeline.edit",
-                            events_on=next(iter(latents_list), None),
-                            edit=True, grid=(grid_h, grid_w),
-                            batch=len(latents_list), backend=self.backend):
+        with self._edit_span(next(iter(latents_list), None),
+                             grid=(grid_h, grid_w), batch=len(latents_list)):
             return self._edit_batch(latents_list, ctx_list, grid_h, grid_w,
                                     forced_masks, mesh)
 
@@ -488,7 +549,10 @@ class EditPipelineBase:
 
         # the same encoder image(s) condition both CFG halves
         enc_imgs = self.encoder_images(images, width, height)
-        # an offloaded encoder comes to the card once for both encodes
+        # an offloaded encoder comes to the card once for both encodes, in
+        # the room of the cache and the graphs, which the next edit remakes
+        if getattr(self.text_encoder, "placement", None) == "offload":
+            self._free_kv()
         on_device = getattr(self.text_encoder, "on_device",
                             contextlib.nullcontext)
         with on_device():
@@ -589,3 +653,154 @@ class EditPipelineBase:
         if output_type == "uint8":
             img = (img * 255).round().astype(np.uint8)
         return img, stats
+
+
+def _sig(x):
+    """What a graph fixes of a tensor input: shape, strides, dtype and
+    device (None for an absent input)."""
+    return None if x is None else (tuple(x.shape), x.stride(), x.dtype,
+                                   x.device)
+
+
+@dataclasses.dataclass
+class _GraphEntry:
+    inputs: tuple                  # static buffers, in `RagsGraphs` order
+    t: torch.Tensor                # static timestep [rows]
+    ctx: EditInputs                # over the static buffers
+    warm: bool = False             # the key's eager call has run
+    graph: Any = None              # torch.cuda.CUDAGraph once captured
+    out: torch.Tensor | None = None    # the graph's static velocity
+
+
+class RagsGraphs:
+    """A pipeline's computed RAGS forwards (`_rags_model`: the ids' remap
+    and rope gather, the embeds and the connector, `rags_bias`, every
+    block, the final layer) replayed from CUDA graphs, one for each key of
+    what the inputs show: the shapes, strides and dtypes of every tensor
+    input (the capacity, the batch rows, the ids' rank, the text length),
+    the CFG expansion, the noise and condition row counts, and the
+    addresses and shapes of the K / V cache, which a graph reads in place.
+
+    A call copies every tensor input into the key's static buffers (one a
+    field and shape, shared by the keys) and fills the static timestep
+    with sigma, rounded to the model dtype as `_timestep` rounds it.  On a
+    card a key's first call runs the forward eagerly over them (the step's
+    real forward, and the warm-up of what it initializes at first use);
+    its second captures the forward into a graph on a side stream and
+    replays it, and later calls replay it.  The graphs share one memory
+    pool and replay one at a time on the caller's stream; a capture that
+    fails raises.  Over CPU tensors every call runs the forward eagerly
+    over the static buffers.  Returns the backbone's velocity: on a card
+    a graph's static output, which the next replay overwrites.
+
+    The pipeline's computed RAGS forwards are counted in `COUNTS`: those
+    replayed from a graph (`replays`; a capture replays too, and
+    `captures` counts it as well) and those run without one (`eager`: a
+    key's first call, CPU tensors, a sharded model)."""
+
+    COUNTS = ("replays", "captures", "eager")
+
+    def __init__(self, pipe: EditPipelineBase):
+        self.pipe = pipe
+        self._entries: dict = {}
+        self._buffers: dict = {}
+        self._pool = None
+        self._stream = None
+        self.replays = self.captures = self.eager = 0
+
+    def counts(self) -> tuple[int, ...]:
+        return tuple(getattr(self, k) for k in self.COUNTS)
+
+    def clear(self) -> None:
+        """Drop every graph and static buffer.  The next capture takes a
+        new pool: the allocator lets a capture share a pool only while a
+        graph holds it, and frees the old one's memory when it needs it."""
+        self._entries.clear()
+        self._buffers.clear()
+        self._pool = None
+
+    @torch.inference_mode()
+    def __call__(self, lat_act, sigma, cache, ids, ctx: EditInputs):
+        inputs = (lat_act, ids, ctx.txt, ctx.pooled, ctx.guidance,
+                  ctx.txt_bias, *ctx.rope_img, *ctx.rope_txt)
+        rows = self.pipe._cfg_rows(lat_act.shape[0])
+        s_cond = ctx.cond_latent.shape[1]
+        key = (rows, ctx.s_noise, s_cond,
+               tuple((k, v.data_ptr(), _sig(v)) for k, v in cache.items()),
+               *map(_sig, inputs))
+        e = self._entries.get(key)
+        if e is None:
+            e = self._entries[key] = self._entry(inputs, rows, ctx.s_noise,
+                                                 s_cond)
+        for buf, x in zip(e.inputs, inputs):
+            if buf is not None:
+                buf.copy_(x)
+        e.t.fill_(float(np.float32(sigma)))
+
+        def forward():
+            return self.pipe._rags_model(e.inputs[0], e.t, cache,
+                                         e.inputs[1], e.ctx)
+
+        if e.graph is not None:
+            e.graph.replay()
+            self.replays += 1
+            return e.out
+        if not (lat_act.is_cuda and e.warm):
+            e.warm = True
+            self.eager += 1
+            return forward()
+        e.graph, e.out = self._capture(forward, lat_act.device)
+        self.captures += 1
+        e.graph.replay()
+        self.replays += 1
+        return e.out
+
+    def _entry(self, inputs, rows, s_noise, s_cond) -> _GraphEntry:
+        bufs = tuple(None if x is None else self._buffer(i, x)
+                     for i, x in enumerate(inputs))
+        lat, ids, txt, pooled, guidance, txt_bias, *rope = bufs
+        t = self._buffer("t", lat.new_empty((rows,),
+                                            dtype=self.pipe.cfg.dtype))
+        # the forward reads the condition's row count alone
+        ctx = EditInputs(txt=txt, cond_latent=lat.new_empty((0, s_cond, 0)),
+                         rope_img=tuple(rope[:2]), rope_txt=tuple(rope[2:]),
+                         pooled=pooled, guidance=guidance, txt_bias=txt_bias,
+                         s_noise=s_noise)
+        return _GraphEntry(inputs=bufs, t=t, ctx=ctx)
+
+    def _buffer(self, field, x) -> torch.Tensor:
+        """The static buffer of `field` for x's shape, strides and dtype."""
+        key = (field, _sig(x))
+        if key not in self._buffers:
+            self._buffers[key] = torch.empty_like(x)
+        return self._buffers[key]
+
+    def _capture(self, forward, device):
+        """(graph, static output) of `forward` captured on the side stream,
+        after the work queued on the caller's, into the shared pool, where
+        what the forward allocates lives.  Only this thread's calls are held
+        to the capture's rules: a service prepares its next request on a
+        worker thread meanwhile."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        self._stream.wait_stream(torch.cuda.current_stream(device))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self._stream):
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="thread_local")
+            try:
+                out = forward()
+            except BaseException:
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+        # cuBLAS made the side stream's workspace in the pool during the
+        # capture: hand it back to the pool (the graph keeps its memory, and
+        # later captures may share it), where it would otherwise stay
+        # allocated for the process's life; the caller's stream makes a new
+        # one at its next product
+        torch._C._cuda_clearCublasWorkspaces()
+        return graph, out

@@ -7,7 +7,8 @@
   * on: one `pipeline.edit` per edit call, over the sampler's segments and
     its host sync; one forward span per dense and computed RAGS step of
     the plan; `depth` block spans per forward; every child inside its
-    parent's host interval; the edit's launch and host-time attrs;
+    parent's host interval; the edit's launch and host-time attrs and
+    its `pipeline.rags_graph` counts;
   * recording leaves the latents bit-identical;
   * each write forward's blocks hold a `model.cache_write` span for K and
     one for V, with their attrs (model-dtype and int8 caches);
@@ -177,9 +178,14 @@ def test_on_an_edit_gives_one_root_over_the_segments(edit):
     roots = [s for s in spans if s.parent is None]
     assert [r.name for r in roots] == ["pipeline.edit"]
     root = roots[0]
+    # the CPU runs every computed RAGS forward eagerly
+    computed = stats.rags_steps - stats.reuse_steps
     assert root.attrs == {"grid": (GRID, GRID), "batch": 1,
                           "backend": "step1x-edit", "launches": 0,
-                          "host_ns": 0, "launch_ns": 0}
+                          "host_ns": 0, "launch_ns": 0,
+                          "pipeline.rags_graph.replays": 0,
+                          "pipeline.rags_graph.captures": 0,
+                          "pipeline.rags_graph.eager": computed}
     assert all(s.edit == root.id for s in spans)
     assert [s.name for s in _children(spans, root)] == list(SAMPLER)
     seg = {s.name: s for s in _children(spans, root)}
