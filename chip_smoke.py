@@ -193,6 +193,7 @@ import numpy as np
 
 from regione_tpu_torch.bench.common import (psnr, read_counts, reset_counts,
                                             structured_condition, timed_edit)
+from regione_tpu_torch.models import kv_cache
 
 T0 = time.perf_counter()
 DEVICE = "cuda"
@@ -980,7 +981,7 @@ def phase_small_reference():
     qwen = MMDiTConfig(depth_single=0, txt_in_dim=64, pooled_dim=0,
                        txt_norm=True, **small)
     for bits in (8, 4):
-        cfg = dataclasses.replace(qwen, **{f"cache_int{bits}": True})
+        cfg = kv_cache.with_cache_format(qwen, f"int{bits}")
         c = card_vs_cpu(f"qwen topology, int{bits} cache", cfg,
                         QwenImageEditPipeline, re, 8, 16, forced)
         if not (c["attention_rows2_quant"] > 0 and c["attention_rows2"] == 0
@@ -991,8 +992,8 @@ def phase_small_reference():
     forced = np.zeros((64, 64), bool)
     forced[8:24, 10:30] = True
     c = card_vs_cpu("qwen-image-edit-plus, two 64x64 references, int8 "
-                    "cache", dataclasses.replace(qwen, heads=1,
-                                                 cache_int8=True),
+                    "cache", kv_cache.with_cache_format(
+                        dataclasses.replace(qwen, heads=1), "int8"),
                     QwenImageEditPlusPipeline,
                     RegionEParams(capacity_granularity=64), 64, 16, forced,
                     cond_grids=[(64, 64), (64, 64)])
@@ -1211,7 +1212,7 @@ def phase_qwen_slice(grid, preset="qwen-image-edit"):
     from regione_tpu_torch.weights.from_jax import init_params
 
     dev = torch.device(DEVICE)
-    cfg = dataclasses.replace(get_config(preset), cache_int8=True)
+    cfg = kv_cache.with_cache_format(get_config(preset), "int8")
     t = time.perf_counter()
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
@@ -1235,22 +1236,19 @@ def phase_qwen_slice(grid, preset="qwen-image-edit"):
         pipe, lat0, ctx, grid, dense_only=True)
     log(f"{label}: dense_s {dense_s:.3f}, launches {dense_counts}, peak "
         f"device memory {dense_peak:.1f} GiB")
-    formats = (("int8", {}),
-               ("int4", dict(cache_int8=False, cache_int4=True)),
-               ("bf16", dict(cache_int8=False)))
     counts, outs, secs = {}, {}, {}
-    for name, flags in formats:
-        model.cfg = dataclasses.replace(cfg, **flags)
+    for name in ("int8", "int4", "bf16"):
+        model.cfg = kv_cache.with_cache_format(cfg, name)
         out, stats, sec, c, peak = timed_edit(
             QwenImageEditPipeline(model, re), lat0, ctx, grid)
-        fmt = name.split()[0]
         log(f"{label}, {name} cache: launches {c}")
         log(f"{label}, {name} cache: regione_s {sec:.3f} speedup "
             f"{dense_s / sec:.3f}x, K2q launches "
             f"{c['attention_rows2_quant']}, K2 launches "
             f"{c['attention_rows2']}, peak device memory {peak:.1f} GiB")
-        check_edit(f"{label}, {name} cache", out, stats, c, dense, shape, fmt)
-        counts[fmt], outs[fmt], secs[name] = c, out, sec
+        check_edit(f"{label}, {name} cache", out, stats, c, dense, shape,
+                   name)
+        counts[name], outs[name], secs[name] = c, out, sec
     model.cfg = cfg
     log(f"{label}: regione_s by cache format: " + ", ".join(
         f"{n} {sec:.3f}" for n, sec in secs.items())
@@ -1260,7 +1258,7 @@ def phase_qwen_slice(grid, preset="qwen-image-edit"):
         f"{psnr(outs['bf16'], outs['int8']):.2f} dB, int4 "
         f"{psnr(outs['bf16'], outs['int4']):.2f} dB latent PSNR")
     phase_profile(f"{label} int8", pipe, ctx, lat0, grid)
-    model.cfg = dataclasses.replace(cfg, cache_int8=False)
+    model.cfg = kv_cache.with_cache_format(cfg, "bf16")
     phase_profile(f"{label} bf16", QwenImageEditPipeline(model, re), ctx,
                   lat0, grid, modes=(False,))
     model.cfg = cfg
@@ -1366,7 +1364,6 @@ def phase_serve_latent(pipe, ctx0, grid, seeds=(110, 111, 112)):
     counts and K2's record."""
     import torch
     from regione_tpu_torch.core.config import pick_capacity
-    from regione_tpu_torch.models.mmdit import init_cache
     from regione_tpu_torch.utils import memplan
     re, cfg = pipe.re, pipe.cfg
     s = grid * grid
@@ -1444,7 +1441,7 @@ def phase_serve_latent(pipe, ctx0, grid, seeds=(110, 111, 112)):
                         cache="bf16", batch=n)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
-    cache = init_cache(cfg, 2 * n, 2 * s, torch.device(DEVICE))
+    cache = kv_cache.init_cache(cfg, 2 * n, 2 * s, torch.device(DEVICE))
     torch.cuda.synchronize()
     cache_bytes = torch.cuda.memory_allocated() - before
     del cache
@@ -2446,7 +2443,7 @@ def phase_flux_w8a8(bf16_out, size=900):
     torch.cuda.synchronize()
     log(f"8a flux-kontext W8A8 built by the CLI (--int8 --act_int8: init, "
         f"then quantize in place) in {time.perf_counter() - t:.1f}s")
-    model.cfg = dataclasses.replace(model.cfg, cache_int8=True)
+    model.cfg = kv_cache.with_cache_format(model.cfg, "int8")
     _weights_against_memplan("8a flux-kontext W8A8", model, int8=True,
                              quantize_mods=True)
     pipe = FluxKontextPipeline(model, DEFAULT_PARAMS["flux-kontext"])
@@ -2504,8 +2501,7 @@ def phase_qwen_int4(model, req, grid):
     log(f"8b qwen-image-edit: quantize_params(bits=4, int4_mods) in place in "
         f"{time.perf_counter() - t:.1f}s, allocated {before / 2**30:.2f} -> "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    model.cfg = dataclasses.replace(model.cfg, cache_int8=False,
-                                    cache_int4=True)
+    model.cfg = kv_cache.with_cache_format(model.cfg, "int4")
     _weights_against_memplan("8b qwen-image-edit int4", model, int8=True,
                              quantize_mods=True, bits=4, int4_mods=True)
     pipe = QwenImageEditPipeline(model, DEFAULT_PARAMS["qwen-image-edit"])
@@ -3253,7 +3249,7 @@ STEP1X_RE = dict(warmup_step=6, post_step=2, refresh_step=(16,),
 def _shard_configs():
     """phase 11's configs: Qwen with the int8 cache, Step1X (bf16 cache),
     each at phase 7's depth cut."""
-    return (dataclasses.replace(ckpt_config("qwen"), cache_int8=True),
+    return (kv_cache.with_cache_format(ckpt_config("qwen"), "int8"),
             ckpt_config("step1x"))
 
 
@@ -3280,7 +3276,6 @@ def sharded_rank(work: str, rank: str, world: str) -> None:
     import torch
     import torch.distributed as dist
     from regione_tpu_torch.core.config import DEFAULT_PARAMS, RegionEParams
-    from regione_tpu_torch.models.mmdit import init_cache
     from regione_tpu_torch.ops import _build
     from regione_tpu_torch.ops.quant import quantized_bytes
     from regione_tpu_torch.parallel.sharding import make_mesh
@@ -3357,8 +3352,8 @@ def sharded_rank(work: str, rank: str, world: str) -> None:
     torch.cuda.synchronize()
     sec = time.perf_counter() - t
     (key, sampler), = pipe._samplers.items()
-    cache = init_cache(scfg, key[3], grid * grid + key[4], "meta",
-                       tp=mesh22.size(1))
+    cache = kv_cache.init_cache(scfg, key[3], grid * grid + key[4],
+                                "meta", tp=mesh22.size(1))
     res["step1x"] = ([o.cpu().numpy() for o in outs],
                      [_plan(s) for s in stats], sec, read_counts())
     res["step1x_cache"] = ({k: tuple(v.shape) for k, v in cache.items()},
@@ -3434,7 +3429,6 @@ def phase_sharded(qwen_grid=64, step1x_grid=32):
     import torch
     import torch.distributed as dist
     from regione_tpu_torch.core.config import DEFAULT_PARAMS, RegionEParams
-    from regione_tpu_torch.models.mmdit import init_cache
     from regione_tpu_torch.ops.quant import quantize_params
     from regione_tpu_torch.parallel.sharding import make_mesh, shard_params
     from regione_tpu_torch.pipelines.qwen_image_edit import (
@@ -3501,8 +3495,7 @@ def phase_sharded(qwen_grid=64, step1x_grid=32):
     torch.cuda.synchronize()
     refs["step1x"] = ([o.cpu().numpy() for o in souts], sstats,
                       time.perf_counter() - t, read_counts())
-    whole_cache = sum(v.numel() * v.element_size() for v in init_cache(
-        scfg, 4, 2 * g * g, "meta").values())
+    whole_cache = kv_cache.cache_bytes(scfg, 4, 2 * g * g)
     torch.save(inputs, work / "inputs.pt")
     log(f"11: unsharded references and requests in "
         f"{time.perf_counter() - t_phase:.1f}s; launching {SHARD_WORLD} "

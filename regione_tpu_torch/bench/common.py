@@ -45,9 +45,10 @@ def config(preset: str, cache: str = "bf16", act_int8: bool = False,
            blocks: int | None = None):
     """`preset`'s backbone config with the KV cache format ("bf16", "int8"
     or "int4"), W8A8 and depth_double (`blocks`) set."""
+    from regione_tpu_torch.models.kv_cache import with_cache_format
     from regione_tpu_torch.models.presets import get_config
-    cfg = dataclasses.replace(get_config(preset), cache_int8=cache == "int8",
-                              cache_int4=cache == "int4", act_int8=act_int8)
+    cfg = dataclasses.replace(with_cache_format(get_config(preset), cache),
+                              act_int8=act_int8)
     if blocks is not None:
         cfg = dataclasses.replace(cfg, depth_double=blocks)
     return cfg

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from regione_tpu_torch.bench import common
+from regione_tpu_torch.models.kv_cache import format_of
 from regione_tpu_torch.utils import telemetry
 
 # preset -> (grid, t_txt, depth_double, artifact): the reference's text
@@ -113,7 +114,7 @@ def memory_plan(args):
     """`utils.memplan.plan` of the run `args` asks for: quantized weights
     and modulations, the KV cache's format, a CFG batch of 2 (FLUX: 1)."""
     from regione_tpu_torch.utils.memplan import plan
-    cache = "int4" if args.cache_int4 else "int8"
+    cache = format_of(int8=True, int4=args.cache_int4)
     cfg = common.config(args.preset, cache, args.act_int8, args.blocks)
     return plan(cfg, grid=args.grid, t_txt=args.t_txt,
                 batch_cfg=1 if args.preset == "flux-kontext" else 2,
@@ -145,8 +146,8 @@ def run(args) -> dict:
 
     grid, t_txt, preset = args.grid, args.t_txt, args.preset
     is_flux = preset == "flux-kontext"
-    bits, cache = (4 if args.int4 else 8), ("int4" if args.cache_int4
-                                            else "int8")
+    bits = 4 if args.int4 else 8
+    cache = format_of(int8=True, int4=args.cache_int4)
     batch_cfg = 1 if is_flux else 2   # FLUX: guidance embedded, one forward
     dev = common.resolve_device(args.device)
     mp = memory_plan(args)
@@ -222,7 +223,7 @@ def run(args) -> dict:
             pix = {"pixel_decode_error": repr(e)[:200]}
     row = {
         "metric": f"{_label(args, cfg, n_params)} single-chip edit speedup "
-                  f"(int{bits} weights + int{4 if args.cache_int4 else 8} KV "
+                  f"(int{bits} weights + {cache} KV "
                   f"cache{' + W8A8 activations' if args.act_int8 else ''})",
         "value": round(speedup, 4),
         "unit": "x",

@@ -72,8 +72,8 @@ def prepare(args, model=None) -> State:
     the seed-0 draw) and the script's draws from `default_rng(0)`: txt,
     cond, pooled, lat, lat_act; a zeroed cache of 2 x S_kv rows."""
     from regione_tpu_torch.core.config import RegionEParams
-    from regione_tpu_torch.models.mmdit import init_cache
-    cache_fmt = "int8" if args.cache_int8 else "bf16"
+    from regione_tpu_torch.models.kv_cache import format_of, init_cache
+    cache_fmt = format_of(int8=args.cache_int8)
     pipe = common.build(args.preset, args.device, backend="step1x-edit",
                         cache=cache_fmt, re=RegionEParams(), model=model)
     cfg, dev = pipe.cfg, pipe.device

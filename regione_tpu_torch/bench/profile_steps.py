@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from regione_tpu_torch.bench import common
-from regione_tpu_torch.models.mmdit import init_cache
+from regione_tpu_torch.models.kv_cache import format_of, init_cache
 
 
 def plan_counts(plan) -> dict:
@@ -54,7 +54,7 @@ def run(preset: str = "step1x-edit:dev", grid: int = 64, t_txt: int = 128,
     before ":" (a tiny-* preset needs one)."""
     if act_int8 and not int8:
         raise SystemExit("--act-int8 requires --int8 weights")
-    fmt = "int4" if cache_int4 else "int8" if cache_int8 else "bf16"
+    fmt = format_of(cache_int8, cache_int4)
     pipe = common.build(preset, device, backend=backend, int8=int8,
                         int4=int4, act_int8=act_int8, cache=fmt,
                         blocks=blocks)

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from regione_tpu_torch.bench import common
-from regione_tpu_torch.models.mmdit import init_cache
+from regione_tpu_torch.models import kv_cache
 
 
 def _request(pipe, grid: int, t_txt: int, seed: int):
@@ -74,7 +74,7 @@ def run(batch: int = 2, grid: int = 64, t_txt: int = 128,
     row, detail): detail holds the batched and the single edit of request 0
     ("batched", "single", numpy) and the timed group's launch counts
     ("launches"); None for an OOM row."""
-    cache_kind = "int4" if cache_int4 else "int8"
+    cache_kind = kv_cache.format_of(int8=True, int4=cache_int4)
     pipe = common.build(preset, device, backend="step1x-edit",
                         cache=cache_kind)
     cfg, dev = pipe.cfg, pipe.device
@@ -120,8 +120,7 @@ def run(batch: int = 2, grid: int = 64, t_txt: int = 128,
     # parity: the batched edit of request 0 against its single edit
     ref = edit(*reqs[0])[0]
     err = float((outs[0] - ref).abs().max())
-    cache_gib = sum(t.numel() * t.element_size() for t in init_cache(
-        cfg, 2, 2 * grid * grid, "meta").values()) * batch / 2**30
+    cache_gib = kv_cache.cache_bytes(cfg, 2, 2 * grid * grid) * batch / 2**30
     row = {
         "metric": f"batch-{batch} single-chip serving throughput gain "
                   f"({cache_kind} KV cache)",

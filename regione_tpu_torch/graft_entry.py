@@ -174,6 +174,7 @@ def _dryrun_multichip_impl(n_devices: int, params: dict | None = None,
     process's card.  Asserts RAGS steps and a partial partition, as the JAX
     dryrun does.  Returns {preset: statistics}."""
     from regione_tpu_torch.core.config import RegionEParams
+    from regione_tpu_torch.models.kv_cache import with_cache_format
     from regione_tpu_torch.models.presets import get_config
     from regione_tpu_torch.parallel.sharding import make_mesh, shard_params
     from regione_tpu_torch.pipelines.qwen_image_edit import (
@@ -203,7 +204,7 @@ def _dryrun_multichip_impl(n_devices: int, params: dict | None = None,
                                 "cpu").state_dict()
         cfg, model, _, ctx, lat0 = _build(preset, grid, t_txt, seed, dev,
                                           state, cfg)
-        model.cfg = dataclasses.replace(cfg, cache_int8=True)
+        model.cfg = with_cache_format(cfg, "int8")
         shard_params(model, mesh)
         pipe = pipe_cls(model, re, true_cfg_scale=4.0)
         # the backend's rope convention (Qwen: centred frame / h / w ids)

@@ -45,6 +45,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from regione_tpu_torch.models import kv_cache
 from regione_tpu_torch.ops.flash_attention import attention, attention_rows2
 from regione_tpu_torch.ops.quant import unpack_int4
 
@@ -506,17 +507,13 @@ def sdpa_cached(q, txt_kv, k_cache, v_cache, bias=None):
     a quantized cache).
     txt_kv: (k, v) [B, H, T1, d] fresh rows, or None: q over the cache
         alone (kernel K1, or K6 for a quantized cache).
-    k_cache/v_cache: [B, H, S, d], or (int8 rows, fp32 scales [B, H, S])
-        when the cache is quantized; int4 rows hold S/2 packed rows
-        (`ops.quant`), told by the row count.
+    k_cache/v_cache: a layer's entries (`kv_cache.layer_kv`): [B, H, S, d],
+        or (int8 rows, fp32 scales [B, H, S]) when quantized (int4: S/2
+        packed rows).
     bias: [B, 1, 1, T1 + S] or None.
     On the CPU the wrappers dequantize, concatenate and attend (the JAX
     fallback); there is no VMEM gate on the card."""
-    scales = {}
-    if isinstance(k_cache, tuple):
-        (k_cache, k_s), (v_cache, v_s) = k_cache, v_cache
-        scales = dict(k_scale=k_s, v_scale=v_s)
+    k, v, scales = kv_cache.attention_args(k_cache, v_cache)
     if txt_kv is None:
-        return attention(q, k_cache, v_cache, _bias_row(bias), **scales)
-    return attention_rows2(q, txt_kv[0], txt_kv[1], k_cache, v_cache,
-                           _bias_row(bias), **scales)
+        return attention(q, k, v, _bias_row(bias), **scales)
+    return attention_rows2(q, *txt_kv, k, v, _bias_row(bias), **scales)

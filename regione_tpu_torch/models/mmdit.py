@@ -17,11 +17,10 @@ Three cache modes:
                  rows of edited ids masked by the bias (kernel K2, or K2q
                  for a quantized cache).  RAGS writes nothing to the cache.
 
-The cache stores attention-ready K (qk-norm and RoPE applied) and raw V,
-head-major [L, B, H, S, dh] over the image rows ([noise ‖ condition]) only:
-in the model dtype, or quantized (`cache_int8`, `cache_int4`: `ops.quant`
-rows plus fp32 row-scale leaves "dk_s" ... of [L, B, H, S]; int4 keeps S/2
-packed rows), which RAGS steps read through kernel K2q.
+The cache (`models.kv_cache`, which owns its format and layout) stores
+attention-ready K (qk-norm and RoPE applied) and raw V, head-major over the
+image rows ([noise ‖ condition]) only: in the model dtype, or quantized
+(int8, int4), which RAGS steps read through kernel K2q.
 The blocks' elementwise chains (AdaLN, the gated residuals, qk-RMSNorm +
 RoPE with the head-major packing, GELU) run through `ops.fused`, kernels
 K7-K9 on the card; the double block's q / k / v are written straight
@@ -35,7 +34,8 @@ quantized once, as JAX's `row_projector` does).  Any linear may be an
 Under tensor parallelism (`parallel.sharding.shard_params`) each rank holds
 its heads (`Attention.heads`, `SingleBlock.heads / inner / mlp_hidden`
 count the rank's own), its `ShardedLinear`s and a cache of its heads
-(`init_cache(..., tp=)`); the attention kernels run unchanged on them.
+(`kv_cache.init_cache(..., tp=)`); the attention kernels run unchanged on
+them.
 """
 
 from __future__ import annotations
@@ -47,10 +47,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from regione_tpu_torch.models import kv_cache
 from regione_tpu_torch.models.connector import Connector, ConnectorConfig
 from regione_tpu_torch.ops.fused import (adaln, gated_residual, gelu_pack,
                                          qk_norm_rope, residual_adaln)
-from regione_tpu_torch.ops.quant import quantize_kv_heads, quantize_kv_heads4
 from regione_tpu_torch.utils import telemetry
 from regione_tpu_torch.models.layers import (
     MLP,
@@ -95,10 +95,8 @@ class MMDiTConfig:
     txt_norm: bool = False         # RMSNorm of the raw text features
                                    # before txt_in (Qwen-Image)
     connector: ConnectorConfig | None = None   # Step1X text refiner
-    cache_int8: bool = False       # KV cache as int8 + per-(row, head)
-                                   # fp32 scales (ops.quant)
-    cache_int4: bool = False       # KV cache as S-halves packed int4 +
-                                   # scales; exclusive with cache_int8
+    cache_int8: bool = False       # the KV cache's format: read and set
+    cache_int4: bool = False       # through `kv_cache.cache_format`
     act_int8: bool = False         # W8A8: int8-weight linears quantize
                                    # their input rows and run an int8
                                    # product (`layers.act_int8`); no-op
@@ -108,18 +106,6 @@ class MMDiTConfig:
     @property
     def inner(self) -> int:
         return self.heads * self.head_dim
-
-    @property
-    def cache_quant(self) -> bool:
-        """Quantized-cache structure: (rows, scales) / "_s" leaves."""
-        assert not (self.cache_int8 and self.cache_int4), \
-            "cache_int8 and cache_int4 are mutually exclusive"
-        return self.cache_int8 or self.cache_int4
-
-    def quantize_kv(self, x):
-        """Head-major K/V [..., S, dh] -> (rows, scales) of the cache."""
-        return (quantize_kv_heads4 if self.cache_int4
-                else quantize_kv_heads)(x)
 
     @property
     def mlp_hidden(self) -> int:
@@ -258,75 +244,6 @@ class SingleBlock(nn.Module):
 # full model
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: MMDiTConfig, batch: int, s_kv_img: int, device,
-               tp: int = 1):
-    """Zeroed KV cache: {"dk", "dv"} (and {"sk", "sv"} with single blocks)
-    of [L, B, H, S, dh], image rows only (txt rows re-embed every step).
-    Quantized: int8 rows (S/2 packed rows under int4) and fp32 scale
-    leaves "dk_s" ... of [L, B, H, S] filled with 1e-12, as in JAX.  `tp`:
-    a tensor-parallel rank's cache holds its H / tp heads."""
-    quant = cfg.cache_quant
-    rows = s_kv_img
-    if cfg.cache_int4:
-        if s_kv_img % 2:
-            raise ValueError(f"an int4 cache needs an even row count, got "
-                             f"{s_kv_img}")
-        rows //= 2
-    depths = {"dk": cfg.depth_double, "dv": cfg.depth_double}
-    if cfg.depth_single:
-        depths.update(sk=cfg.depth_single, sv=cfg.depth_single)
-    cache = {}
-    for key, depth in depths.items():
-        cache[key] = torch.zeros(
-            (depth, batch, cfg.heads // tp, rows, cfg.head_dim),
-            dtype=torch.int8 if quant else cfg.dtype, device=device)
-        if quant:
-            cache[key + "_s"] = torch.full(
-                (depth, batch, cfg.heads // tp, s_kv_img), 1e-12,
-                dtype=torch.float32, device=device)
-    return cache
-
-
-def reset_cache(cache):
-    """Refill a cache in place as `init_cache` fills a new one (zeros,
-    and 1e-12 in the scale leaves); returns it."""
-    for key, x in cache.items():
-        if key.endswith("_s"):
-            x.fill_(1e-12)
-        else:
-            x.zero_()
-    return cache
-
-
-def _layer_kv(cache, key: str, i: int):
-    """Layer i's cache entry: a tensor, or (rows, scales) when quantized."""
-    if key + "_s" in cache:
-        return cache[key][i], cache[key + "_s"][i]
-    return cache[key][i]
-
-
-def _store_kv(cfg: MMDiTConfig, cache, key: str, i: int, x):
-    """Write mode: layer i's K or V rows into the cache, in place
-    (quantized rows and scales under cache_int8 / cache_int4), in a span
-    `model.cache_write` (CUDA events on x; attrs: the block index, the
-    cache `key`, the rows, the bytes written and the format: int8, int4
-    or the model dtype's name)."""
-    fmt = ("int4" if cfg.cache_int4 else "int8" if cfg.cache_int8
-           else str(cfg.dtype).removeprefix("torch."))
-    with telemetry.span("model.cache_write", events_on=x, index=i, key=key,
-                        rows=x.shape[-2], format=fmt) as sp:
-        if cfg.cache_quant:
-            rows, scales = cfg.quantize_kv(x)
-            cache[key][i].copy_(rows)
-            cache[key + "_s"][i].copy_(scales)
-            written = (rows.numel() * rows.element_size()
-                       + scales.numel() * scales.element_size())
-        else:
-            cache[key][i].copy_(x)
-            written = x.numel() * x.element_size()
-        sp.set(bytes=written)
-
-
 def rags_bias(sel_img_ids, s_kv: int, t_txt: int, batch: int, txt_bias):
     """[B, 1, 1, t_txt + cap + s_kv] key bias of a RAGS step: keys are
     [txt ‖ edited (fresh) ‖ cached image rows].  `sel_img_ids` is [cap]
@@ -411,43 +328,40 @@ class MMDiT(nn.Module):
         `model.cache_write` spans (K, V), which time the device."""
         cfg = self.cfg
         if mode == MODE_WRITE and cache is None:
-            cache = init_cache(cfg, img.shape[0], img.shape[1], img.device,
-                               self.tp_size)
+            cache = kv_cache.init_cache(cfg, img.shape[0], img.shape[1],
+                                        img.device, self.tp_size)
         with telemetry.span("model.embed"):
             x, txt_h, temb_act = self._embed(img, txt, t, pooled, guidance,
                                              txt_bias)
         t_txt = txt_h.shape[1]
 
-        bias = txt_bias
-        if mode == MODE_RAGS:
-            # the cached row count: read off the scales under a quantized
-            # cache (an int4 rows leaf holds S/2 packed rows)
-            s_kv = cache["dk_s" if cfg.cache_quant else "dk"].shape[3]
-            bias = rags_bias(sel_img_ids, s_kv, t_txt, x.shape[0], txt_bias)
-
         rags = mode == MODE_RAGS
+        bias = txt_bias
+        if rags:
+            bias = rags_bias(sel_img_ids, kv_cache.image_rows(cache), t_txt,
+                             x.shape[0], txt_bias)
         for i, blk in enumerate(self.double_blocks):
             with telemetry.span("model.double_block", index=i):
-                ck = _layer_kv(cache, "dk", i) if rags else None
-                cv = _layer_kv(cache, "dv", i) if rags else None
+                ck = kv_cache.layer_kv(cache, "dk", i) if rags else None
+                cv = kv_cache.layer_kv(cache, "dv", i) if rags else None
                 x, txt_h, kv = blk(x, txt_h, temb_act, rope_img, rope_txt,
                                    mode, ck, cv, bias)
                 if kv is not None:
-                    _store_kv(cfg, cache, "dk", i, kv[0])
-                    _store_kv(cfg, cache, "dv", i, kv[1])
+                    kv_cache.store_kv(cfg, cache, "dk", i, kv[0])
+                    kv_cache.store_kv(cfg, cache, "dv", i, kv[1])
 
         if cfg.depth_single:
             stream = torch.cat([txt_h, x], dim=1)
             rope_stream = concat_rope(rope_txt, rope_img)
             for i, blk in enumerate(self.single_blocks):
                 with telemetry.span("model.single_block", index=i):
-                    ck = _layer_kv(cache, "sk", i) if rags else None
-                    cv = _layer_kv(cache, "sv", i) if rags else None
+                    ck = kv_cache.layer_kv(cache, "sk", i) if rags else None
+                    cv = kv_cache.layer_kv(cache, "sv", i) if rags else None
                     stream, kv = blk(stream, temb_act, rope_stream, mode, ck,
                                      cv, bias, t_txt=t_txt)
                     if kv is not None:
-                        _store_kv(cfg, cache, "sk", i, kv[0])
-                        _store_kv(cfg, cache, "sv", i, kv[1])
+                        kv_cache.store_kv(cfg, cache, "sk", i, kv[0])
+                        kv_cache.store_kv(cfg, cache, "sv", i, kv[1])
             x = stream[:, t_txt:]
 
         with telemetry.span("model.final"):

@@ -1,10 +1,9 @@
 """Backbone presets of the port, under the JAX package's names and numbers
 (`regione_tpu/models/presets.py`): the full-width Step1X-Edit (v1.1 and
 v1.2), FLUX.1 Kontext and Qwen-Image-Edit (+ Plus), their scaled
-single-device variants, and the tiny CPU test configs.  The quantized-cache
-flags are not part of a preset: set them with
-`dataclasses.replace(cfg, cache_int8=True)` as the JAX package's
-callers do."""
+single-device variants, and the tiny CPU test configs.  The cache format
+is not part of a preset: set it with
+`models.kv_cache.with_cache_format(cfg, "int8")`."""
 
 from __future__ import annotations
 

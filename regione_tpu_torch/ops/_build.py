@@ -15,8 +15,8 @@ edit rebuilds and an unchanged tree reuses the last build.  It is built at
 first use, never at import: the CPU tests import every module of the port on
 machines with no nvcc.  Each C entry takes device pointers and the stream as
 `c_void_p` (a plain int would be cut to 32 bits), launches on PyTorch's
-current stream, allocates nothing, and returns cudaGetLastError(); `check`
-raises on a non-zero code.
+current stream, allocates nothing, and returns cudaGetLastError()
+(`ops.launch.launch` raises on a non-zero code).
 """
 
 from __future__ import annotations
@@ -128,8 +128,3 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
-
-
-def check(code: int, name: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {code}")

@@ -29,10 +29,10 @@ Contract of all (the JAX `sdpa` contract): logits and softmax in fp32, an
 optional additive fp32 key-column bias [B, S_total], output [B, T, H*D] in
 q's dtype.  On a CPU tensor the wrapper computes the plain PyTorch version
 (`*_reference`: dequantize with `ops.quant`, concatenate, attend, as the
-JAX fallback does); on a CUDA tensor it launches the kernel or raises.  The
-kernel takes bf16 q/k/v with D = 128, int8 cache rows, any (b, h, row)
-strides with a dense last dim and 16-byte aligned rows (so `split_heads`
-views need no copy), row-dense fp32 scales and a dense fp32 bias.
+JAX fallback does); on a CUDA tensor it launches the kernel or raises
+(`ops.launch`).  The kernel takes `launch.check`'s bf16 q/k/v rows (so
+`split_heads` views need no copy) with D = `HEAD_DIM`, int8 cache rows,
+row-dense fp32 scales and a dense fp32 bias.
 
 Bound against the plain version on the card: the kernel keeps an online
 softmax and casts the unnormalised P to bf16, the plain version casts the
@@ -40,12 +40,11 @@ normalised P; both round the output to bf16.  The difference is a few bf16
 ulps of the output scale (`chip_smoke.py` states and checks the bound).  The
 dequantized K/V are bit-equal in both.
 
-Launch counters: `attention.launches` (every K1 launch) and
-`attention.long_launches` (those past `RESIDENT_KEYS`, the K5 regime),
-`attention_rows2.launches` (K2), `attention_rows2_quant.launches` (K2q),
-`attention_quant.launches` (K6); beside each `.launches`, summed while
-`utils.telemetry` records, `.host_ns` (the wrapper's host time up to its
-launch call) and `.launch_ns` (the launch call).
+Launch counters (`ops.launch.launch`): `attention.launches` (every K1
+launch) and `attention.long_launches` (those past `RESIDENT_KEYS`, the K5
+regime), `attention_rows2.launches` (K2), `attention_rows2_quant.launches`
+(K2q), `attention_quant.launches` (K6), each with `.host_ns` and
+`.launch_ns`.
 """
 
 from __future__ import annotations
@@ -55,10 +54,11 @@ import math
 
 import torch
 
+from regione_tpu_torch.ops import launch
+from regione_tpu_torch.ops.launch import HEAD_DIM
 from regione_tpu_torch.ops.quant import dequantize_cache
 from regione_tpu_torch.utils import telemetry
 
-HEAD_DIM = 128
 # the JAX package's resident budget at its default block_q = 128
 # (4 * 128 * S <= 6 MiB of logits): past it `flash_attention` runs K5
 RESIDENT_KEYS = 12288
@@ -101,36 +101,25 @@ def attention_rows2_quant_reference(q, k1, v1, k2, v2, k_scale, v_scale,
         dequantize_cache(v2, v_scale, q.dtype), bias)
 
 
-def _strides(x, n=3):
-    """The first n element strides; a size-1 dim is never stepped over, so
-    its stride (which torch leaves arbitrary) is taken as 0."""
-    return [0 if x.shape[i] == 1 else x.stride(i) for i in range(n)]
-
-
-def _check_rows(name, x, b, h, d, device, dtype):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, q on {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: the kernel takes {dtype}, got {x.dtype}")
-    if x.dim() != 4 or x.shape[0] != b or x.shape[1] != h or x.shape[3] != d:
-        raise ValueError(f"{name}: shape {tuple(x.shape)} is not "
-                         f"[{b}, {h}, rows, {d}]")
-    if x.stride(3) != 1:
-        raise ValueError(f"{name}: the last dim must be dense")
-    step = 16 // x.element_size()
-    if x.data_ptr() % 16 or any(s % step for s in _strides(x)):
-        raise ValueError(f"{name}: rows must be 16-byte aligned "
-                         f"(strides {x.stride()})")
+def _segment(names, k, v, device, rows, dtype=torch.bfloat16):
+    """A K/V segment's rows [B, H, S, D] (`rows`: its shape, S None) ->
+    (S, the leading strides of k and v)."""
+    strides = (launch.check(names[0], k, device, rows, dtype)
+               + launch.check(names[1], v, device, rows, dtype))
+    if v.shape[2] != k.shape[2]:
+        raise ValueError(f"{names[0]} and {names[1]} differ in rows")
+    return k.shape[2], strides
 
 
 def _check_quant(q, k, v, k_scale, v_scale):
-    """int8 or packed int4 K/V rows and their scales -> (S, mode)."""
+    """int8 or packed int4 K/V rows and their scales -> (S, mode, the
+    leading strides of k and v, those of the two scales)."""
     b, h, _, d = q.shape
     if v_scale is None:
         raise ValueError("k_scale given without v_scale")
-    for name, x in (("k", k), ("v", v)):
-        _check_rows(name, x, b, h, d, q.device, torch.int8)
-    s = k_scale.shape[-1]
+    rows, strides = _segment(("k", "v"), k, v, q.device, (b, h, None, d),
+                             torch.int8)
+    s, sc_strides = k_scale.shape[-1], []
     for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
         if (sc.device != q.device or sc.dtype != torch.float32
                 or tuple(sc.shape) != (b, h, s)):
@@ -140,13 +129,11 @@ def _check_quant(q, k, v, k_scale, v_scale):
         if s > 1 and sc.stride(2) != 1:
             raise ValueError(f"{name}: each (b, h) row of scales must be "
                              f"contiguous (strides {sc.stride()})")
-    rows = k.shape[2]
-    if v.shape[2] != rows:
-        raise ValueError("k and v differ in rows")
+        sc_strides += launch.lead_strides(sc, 2)
     if rows == s:
-        return s, MODE_INT8
+        return s, MODE_INT8, strides, sc_strides
     if rows * 2 == s:
-        return s, MODE_INT4
+        return s, MODE_INT4, strides, sc_strides
     raise ValueError(
         f"{rows} cache rows for {s} scales: neither int8 (rows == S) nor "
         "int4 S-halves packing (rows == S / 2, S even)")
@@ -154,32 +141,23 @@ def _check_quant(q, k, v, k_scale, v_scale):
 
 def _launch(q, k1, v1, k2, v2, bias, k_scale=None, v_scale=None,
             counter=None, t0=0):
-    """One launch over [k1/v1 rows ‖ k2/v2 rows]; either may be None.
-    With scales, k2/v2 are a quantized cache (int8 or packed int4).  Its
-    host times go to `counter`'s `host_ns` (from `t0`, `telemetry.clock()`
-    at the wrapper's entry) and `launch_ns`."""
-    from regione_tpu_torch.ops import _build
+    """One launch over [k1/v1 rows ‖ k2/v2 rows], counted on `counter`
+    from `t0` (`launch.launch`); either segment may be None.  With scales,
+    k2/v2 are a quantized cache (int8 or packed int4)."""
     b, h, t, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"the attention kernel takes D = {HEAD_DIM}, got {d}")
-    dev, bf16 = q.device, torch.bfloat16
-    _check_rows("q", q, b, h, d, dev, bf16)
-    s1 = 0
+    dev, rows = q.device, (b, h, None, d)
+    q_strides = launch.check("q", q, dev, rows)
+    s1 = s2 = 0
+    mode, seg1, seg2, sc_strides = MODE_BF16, None, None, (0, 0, 0, 0)
     if k1 is not None:
-        for name, x in (("k1", k1), ("v1", v1)):
-            _check_rows(name, x, b, h, d, dev, bf16)
-        s1 = k1.shape[2]
-        if v1.shape[2] != s1:
-            raise ValueError("k1 and v1 differ in rows")
-    s2, mode = 0, MODE_BF16
+        s1, seg1 = _segment(("k1", "v1"), k1, v1, dev, rows)
     if k2 is not None and k_scale is not None:
-        s2, mode = _check_quant(q, k2, v2, k_scale, v_scale)
+        s2, mode, seg2, sc_strides = _check_quant(q, k2, v2, k_scale,
+                                                  v_scale)
     elif k2 is not None:
-        for name, x in (("k2", k2), ("v2", v2)):
-            _check_rows(name, x, b, h, d, dev, bf16)
-        s2 = k2.shape[2]
-        if v2.shape[2] != s2:
-            raise ValueError("k2 and v2 differ in rows")
+        s2, seg2 = _segment(("k2", "v2"), k2, v2, dev, rows)
     if t == 0 or s1 + s2 == 0:
         raise ValueError("empty attention")
     if bias is not None:
@@ -191,38 +169,18 @@ def _launch(q, k1, v1, k2, v2, bias, k_scale=None, v_scale=None,
                 f"{dev}, got {bias.dtype} {tuple(bias.shape)}")
     out = torch.empty((b, t, h * d), dtype=q.dtype, device=dev)
     # an absent segment's pointers and strides are never read (S = 0)
-    k1_, v1_ = (k1, v1) if k1 is not None else (k2, v2)
-    k2_, v2_ = (k2, v2) if k2 is not None else (k1, v1)
+    k1_, v1_, seg1 = (k1, v1, seg1) if k1 is not None else (k2, v2, seg2)
+    k2_, v2_, seg2 = (k2, v2, seg2) if k2 is not None else (k1, v1, seg1)
     scales = (k_scale, v_scale) if mode != MODE_BF16 else (None, None)
-    strides = (ctypes.c_longlong * 19)(
-        *(s for x in (q, k1_, v1_, k2_, v2_) for s in _strides(x)),
-        *(s for sc in scales
-          for s in (_strides(sc, 2) if sc is not None else (0, 0))))
+    strides = (ctypes.c_longlong * 19)(*q_strides, *seg1, *seg2,
+                                       *sc_strides)
     # one entry for every storage mode: `mode` picks the instantiation
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        t_call = telemetry.lap(counter, t0)
-        code = lib.regione_attention_tma_fwd(
-            q.data_ptr(), k1_.data_ptr(), v1_.data_ptr(), k2_.data_ptr(),
-            v2_.data_ptr(), *(sc.data_ptr() if sc is not None else None
-                              for sc in scales),
-            bias.data_ptr() if bias is not None else None,
-            out.data_ptr(), strides, b, h, t, s1, s2, mode,
-            1.0 / math.sqrt(d), stream)
-    telemetry.lap(counter, t_call, "launch_ns")
-    _build.check(code, "regione_attention_tma_fwd")
+    launch.launch(counter, t0, "regione_attention_tma_fwd", dev,
+                  q.data_ptr(), k1_.data_ptr(), v1_.data_ptr(),
+                  k2_.data_ptr(), v2_.data_ptr(), *map(launch.ptr, scales),
+                  launch.ptr(bias), out.data_ptr(), strides, b, h, t, s1, s2,
+                  mode, 1.0 / math.sqrt(d))
     return out
-
-
-def _kernel_device(q):
-    """True for a CUDA tensor (launch), False for a CPU one (plain
-    version); any other device raises."""
-    if q.device.type == "cpu":
-        return False
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
-    return True
 
 
 def attention(q, k, v, bias=None, k_scale=None, v_scale=None):
@@ -232,10 +190,9 @@ def attention(q, k, v, bias=None, k_scale=None, v_scale=None):
     t0 = telemetry.clock()
     if k_scale is not None:
         return attention_quant(q, k, v, k_scale, v_scale, bias)
-    if not _kernel_device(q):
+    if not launch.on_card(q, "attention"):
         return attention_reference(q, k, v, bias)
     out = _launch(q, k, v, None, None, bias, counter=attention, t0=t0)
-    attention.launches += 1
     if k.shape[2] > RESIDENT_KEYS:
         attention.long_launches += 1
     return out
@@ -252,36 +209,30 @@ def attention_rows2(q, k1, v1, k2, v2, bias=None, k_scale=None,
     if k_scale is not None:
         return attention_rows2_quant(q, k1, v1, k2, v2, k_scale, v_scale,
                                      bias)
-    if not _kernel_device(q):
+    if not launch.on_card(q, "attention"):
         return attention_rows2_reference(q, k1, v1, k2, v2, bias)
-    out = _launch(q, k1, v1, k2, v2, bias, counter=attention_rows2, t0=t0)
-    attention_rows2.launches += 1
-    return out
+    return _launch(q, k1, v1, k2, v2, bias, counter=attention_rows2, t0=t0)
 
 
 def attention_rows2_quant(q, k1, v1, k2, v2, k_scale, v_scale, bias=None):
     """K2q: K2 with the cache as int8 rows [B, H, S, D] or packed int4 rows
     [B, H, S/2, D] and fp32 row scales [B, H, S]; bias [B, S1 + S]."""
     t0 = telemetry.clock()
-    if not _kernel_device(q):
+    if not launch.on_card(q, "attention"):
         return attention_rows2_quant_reference(q, k1, v1, k2, v2, k_scale,
                                                v_scale, bias)
-    out = _launch(q, k1, v1, k2, v2, bias, k_scale, v_scale,
-                  counter=attention_rows2_quant, t0=t0)
-    attention_rows2_quant.launches += 1
-    return out
+    return _launch(q, k1, v1, k2, v2, bias, k_scale, v_scale,
+                   counter=attention_rows2_quant, t0=t0)
 
 
 def attention_quant(q, k, v, k_scale, v_scale, bias=None):
     """K6: q over a quantized K/V alone (int8 [B, H, S, D] or packed int4
     [B, H, S/2, D] rows, fp32 scales [B, H, S]); bias [B, S]."""
     t0 = telemetry.clock()
-    if not _kernel_device(q):
+    if not launch.on_card(q, "attention"):
         return attention_quant_reference(q, k, v, k_scale, v_scale, bias)
-    out = _launch(q, None, None, k, v, bias, k_scale, v_scale,
-                  counter=attention_quant, t0=t0)
-    attention_quant.launches += 1
-    return out
+    return _launch(q, None, None, k, v, bias, k_scale, v_scale,
+                   counter=attention_quant, t0=t0)
 
 
 def reset_launches():

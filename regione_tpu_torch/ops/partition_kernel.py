@@ -15,10 +15,9 @@ or 16 x 16 when the 8 x 8 tiles of all images pass one wave), each
 thresholding its tile plus a 3-cell halo (see the source's note).  On a
 CPU tensor `fused_partition` computes the plain PyTorch version
 (`partition_reference`, the same formula); on a CUDA tensor it launches
-the kernel or raises.  `fused_partition.launches` counts kernel launches
-(one per call, whatever the batch); beside it, summed while
-`utils.telemetry` records, `fused_partition.host_ns` (its host time up to
-its launch call) and `.launch_ns` (the launch call).
+the kernel or raises (`ops.launch`).  `fused_partition.launches` counts
+kernel launches (one per call, whatever the batch), beside its `.host_ns`
+and `.launch_ns` (`ops.launch.launch`).
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from regione_tpu_torch.ops import launch
 from regione_tpu_torch.utils import telemetry
 
 
@@ -69,12 +69,9 @@ def fused_partition(x0, cond, threshold, grid_h: int, grid_w: int,
     row), threshold a float -> bool [S] or [B, S], in one launch.
     CPU: plain version.  CUDA: the kernel (fp32, dense), or raises."""
     t0 = telemetry.clock()
-    if x0.device.type == "cpu":
+    if not launch.on_card(x0, "partition"):
         return partition_reference(x0, cond, threshold, grid_h, grid_w,
                                    erosion_dilation)
-    if x0.device.type != "cuda":
-        raise ValueError(f"no partition kernel for device {x0.device}")
-    from regione_tpu_torch.ops import _build
     s = grid_h * grid_w
     for name, x in (("x0", x0), ("cond", cond)):
         if x.device != x0.device or x.dtype != torch.float32:
@@ -89,16 +86,10 @@ def fused_partition(x0, cond, threshold, grid_h: int, grid_w: int,
     batch = x0.shape[0] if x0.dim() == 3 else 1
     d = x0.shape[-1]
     out = torch.empty(x0.shape[:-1], dtype=torch.uint8, device=x0.device)
-    lib = _build.load()
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        t = telemetry.lap(fused_partition, t0)
-        code = lib.regione_partition_fwd(
-            x0.data_ptr(), cond.data_ptr(), float(threshold), grid_h, grid_w,
-            d, int(erosion_dilation), batch, s * d, out.data_ptr(), stream)
-    telemetry.lap(fused_partition, t, "launch_ns")
-    _build.check(code, "regione_partition_fwd")
-    fused_partition.launches += 1
+    launch.launch(fused_partition, t0, "regione_partition_fwd", x0.device,
+                  x0.data_ptr(), cond.data_ptr(), float(threshold), grid_h,
+                  grid_w, d, int(erosion_dilation), batch, s * d,
+                  out.data_ptr())
     return out.view(torch.bool)
 
 

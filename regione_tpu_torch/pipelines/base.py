@@ -62,10 +62,10 @@ from regione_tpu_torch.core.gamma import gamma_for
 from regione_tpu_torch.core.sampler import RegionESampler
 from regione_tpu_torch.core.schedule import (FLUX_SHIFT, FlowShift,
                                              build_stage_plan)
+from regione_tpu_torch.models.kv_cache import init_cache, reset_cache
 from regione_tpu_torch.models.layers import gather_rope, rope_table
 from regione_tpu_torch.models.mmdit import (MODE_DENSE, MODE_RAGS,
-                                            MODE_WRITE, MMDiT, init_cache,
-                                            reset_cache)
+                                            MODE_WRITE, MMDiT)
 from regione_tpu_torch.models.vae import pack_latents, unpack_latents
 from regione_tpu_torch.parallel.sharding import dp_all_gather
 from regione_tpu_torch.utils import telemetry

@@ -18,7 +18,7 @@ Counterpart of `regione_tpu/pipelines/qwen_image_edit.py`:
     ~384^2 area and to the VAE at ~1024^2 area, both multiples of 32.
 The backbone is the joint double-stream MMDiT (presets "qwen-image-edit",
 "qwen-image-edit-plus"), usually run with a quantized KV cache
-(`MMDiTConfig.cache_int8` / `cache_int4`).  Its knobs are
+(`models.kv_cache.with_cache_format`).  Its knobs are
 `DEFAULT_PARAMS[backend]` and `gamma_for(backend)` of the port's
 `core.config` and `core.gamma`.  Its VAE is the Wan VAE (`models/vae_wan.py`).
 """

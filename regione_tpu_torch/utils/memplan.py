@@ -8,8 +8,8 @@ KV cache 1 / tp; the sums are made per JAX leaf, the layer stacks summed
 first, as the JAX module counts).  The byte counts are
 exact and allocate nothing: the parameters are those of the port's `MMDiT`
 built on the `meta` device (quantized there by `ops.quant.quantize_params`),
-the cache those of `init_cache`'s tensors (the JAX module takes both from
-`jax.eval_shape`); the activations are the JAX module's
+the cache those of `models.kv_cache.cache_bytes` (the JAX module takes
+both from `jax.eval_shape`); the activations are the JAX module's
 estimate (the dominant live set of one dense forward at bf16, x2 slack).
 `batch` is the number of images denoised together (`EditService.
 run_batched`'s group, `RegionESampler.sample_batch`): each brings its own
@@ -41,11 +41,13 @@ from pathlib import Path
 
 import torch
 
+from regione_tpu_torch.models.kv_cache import (CACHE_FORMATS, cache_bytes,
+                                               cache_format,
+                                               with_cache_format)
+
 # device memory of one card, bytes: the H100 SXM's 80 GB (chip_smoke.py
 # prints torch.cuda.get_device_properties(0).total_memory beside it)
 HBM_BYTES = {"h100": 80 * 1024**3}
-
-CACHE_FORMATS = ("bf16", "int8", "int4")
 
 # the published prompt encoders' widths (their config.json), as the
 # `transformers` config classes take them: (model class, config class,
@@ -202,15 +204,13 @@ def plan(preset, grid: int = 64, t_txt: int = 512, batch_cfg: int = 2,
     parallel degree (`parallel.sharding`).  `encoder`: the prompt
     encoder to count (`encoder_bytes`; "+"-joined parts add up), whole on
     every card."""
-    from regione_tpu_torch.models.mmdit import MMDiT, init_cache
+    from regione_tpu_torch.models.mmdit import MMDiT
     from regione_tpu_torch.models.presets import get_config
     from regione_tpu_torch.ops.quant import quantize_params
     from regione_tpu_torch.parallel.sharding import jax_leaf, param_specs
-    if cache not in CACHE_FORMATS:
-        raise ValueError(f"cache format {cache!r}, not one of "
-                         f"{CACHE_FORMATS}")
     name = preset if isinstance(preset, str) else "custom"
-    cfg = get_config(preset) if isinstance(preset, str) else preset
+    cfg = with_cache_format(
+        get_config(preset) if isinstance(preset, str) else preset, cache)
     meta = torch.device("meta")
     model = MMDiT(cfg, meta)
     if int8:
@@ -228,10 +228,7 @@ def plan(preset, grid: int = 64, t_txt: int = 512, batch_cfg: int = 2,
            for path, (nb, split) in leaves.items()
            if not split and nb > 64 * 1024**2 and tp > 1]
     s_kv = 2 * grid * grid
-    cache_cfg = dataclasses.replace(cfg, cache_int8=cache == "int8",
-                                    cache_int4=cache == "int4")
-    cache_bytes = sum(t.numel() * t.element_size() for t in init_cache(
-        cache_cfg, batch * batch_cfg, s_kv, meta).values()) // tp
+    kv_bytes = cache_bytes(cfg, batch * batch_cfg, s_kv, tp)
     act = (batch * batch_cfg * (s_kv + t_txt)
            * max(cfg.mlp_hidden // tp, 3 * cfg.inner // tp, cfg.hidden)
            * 2) * 2
@@ -241,8 +238,8 @@ def plan(preset, grid: int = 64, t_txt: int = 512, batch_cfg: int = 2,
     return MemPlan(
         preset=name, cache=cache, grid=grid, t_txt=t_txt,
         batch_cfg=batch_cfg, batch=batch, param_bytes=int(param_bytes),
-        cache_bytes=int(cache_bytes), activation_bytes_est=int(act),
-        total_bytes=int(param_bytes + cache_bytes + act + enc),
+        cache_bytes=kv_bytes, activation_bytes_est=int(act),
+        total_bytes=int(param_bytes + kv_bytes + act + enc),
         params_total=int(sum(p.numel() * (2 if n.endswith(".w_qp") else 1)
                              for n, p in named)),
         tp=tp, sharded_leaves=sum(split for _, split in leaves.values()),
@@ -258,10 +255,8 @@ def choose_placement(cfg, encoder: str, hbm: int | str, *, grid: int = 64,
     anything is loaded: (`MemPlan.encoder_placement`, the plan).  The
     defaults are a 1024^2 edit (grid 64) at the reference's 512-token
     prompt under batch CFG."""
-    cache = ("int4" if cfg.cache_int4 else "int8" if cfg.cache_int8
-             else "bf16")
-    p = plan(cfg, grid=grid, t_txt=t_txt, batch_cfg=batch_cfg, cache=cache,
-             tp=tp, encoder=encoder, **weights)
+    p = plan(cfg, grid=grid, t_txt=t_txt, batch_cfg=batch_cfg,
+             cache=cache_format(cfg), tp=tp, encoder=encoder, **weights)
     return p.encoder_placement(hbm), p
 
 

@@ -24,9 +24,6 @@ CPU a fake library records which C entry each wrapper calls and with
 what.
 """
 
-import contextlib
-import types
-
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -38,6 +35,7 @@ from regione_tpu.ops import flash_attention as jfa
 from regione_tpu.ops import quant as jq
 from regione_tpu_torch.ops import flash_attention as fa
 from regione_tpu_torch.ops import quant as tq
+from torch_cpu import fake_lib  # noqa: F401 (fixture)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 TOL_QKERNEL = dict(rtol=2e-2, atol=2e-2)
@@ -304,33 +302,6 @@ def test_long_s_matches_plain_on_the_card(cuda_device):
     want = fa.attention_reference(q, k, v)
     err = (got.float() - want.float()).abs().max()
     assert err <= 2e-2 * want.float().abs().max()
-
-
-class _FakeLib:
-    """Stands in for the kernels' library: records (entry, args), returns
-    0 (success) and leaves the output as allocated."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __getattr__(self, name):
-        if not name.startswith("regione_attention"):
-            raise AttributeError(name)
-        return lambda *args: self.calls.append((name, args)) or 0
-
-
-@pytest.fixture
-def fake_lib(monkeypatch):
-    """The wrappers' kernel path on CPU tensors, with the library faked."""
-    from regione_tpu_torch.ops import _build
-    lib = _FakeLib()
-    monkeypatch.setattr(_build, "load", lambda: lib)
-    monkeypatch.setattr(fa, "_kernel_device", lambda q: True)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda: types.SimpleNamespace(cuda_stream=0))
-    return lib
 
 
 def _bf16_heads(b, t, h=H):

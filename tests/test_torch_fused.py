@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from regione_tpu.models import layers as jl
+from regione_tpu_torch.models import kv_cache
 from regione_tpu_torch.models import mmdit as tm
 from regione_tpu_torch.models.layers import (apply_rope, gather_rope,
                                              layernorm, project_rows,
@@ -39,6 +40,7 @@ from regione_tpu_torch.models.layers import (apply_rope, gather_rope,
 from regione_tpu_torch.models.presets import get_config
 from regione_tpu_torch.ops import fused
 from regione_tpu_torch.weights.from_jax import init_params
+from torch_cpu import fake_lib  # noqa: F401 (fixture)
 from torch_cpu import one_torch_thread  # noqa: F401 (autouse)
 
 DTYPES = {"fp32": (torch.float32, jnp.float32),
@@ -424,7 +426,7 @@ def test_forward_is_bit_equal_to_the_eager_blocks(monkeypatch, preset, mode):
     if mode == tm.MODE_RAGS:
         sel = torch.tensor([0, 5, 9, 20, s_kv])
         rope_img = gather_rope(rope_img, sel)
-        cache = tm.init_cache(cfg, B, s_kv, "cpu")
+        cache = kv_cache.init_cache(cfg, B, s_kv, "cpu")
         for t in cache.values():
             t.copy_(torch.from_numpy(rng.standard_normal(t.shape)))
     txt_dim = cfg.connector.in_dim if cfg.connector else cfg.txt_in_dim
@@ -482,22 +484,18 @@ _WRAPPERS = {
 
 @pytest.mark.parametrize("rows", [0, 3])
 @pytest.mark.parametrize("name", list(_WRAPPERS))
-def test_a_counter_counts_only_launches(monkeypatch, name, rows):
-    """The kernel path rehearsed on the CPU (`_kernel_device` says launch,
-    `_call` records instead of launching): a wrapper's counter goes up by
-    one where `_call` ran, and an empty batch neither launches nor
-    counts."""
-    calls = []
-    monkeypatch.setattr(fused, "_kernel_device", lambda x, what: True)
-    monkeypatch.setattr(fused, "_call", lambda name, dev, *a:
-                        calls.append(name))
+def test_a_counter_counts_only_launches(fake_lib, name, rows):
+    """The kernel path rehearsed on the CPU at the launch seam (`fake_lib`:
+    `ops.launch` says launch, the library records instead of launching): a
+    wrapper's counter goes up by one where its C entry was called, and an
+    empty batch neither launches nor counts."""
     fused.reset_launches()
     x = torch.zeros(1, rows, 256, dtype=torch.bfloat16)
     m = torch.zeros(1, 1, 256, dtype=torch.bfloat16)
     _WRAPPERS[name](x, m)
     counts = {k: getattr(fused, k).launches for k in _WRAPPERS}
     assert counts == {k: int(k == name and rows > 0) for k in _WRAPPERS}
-    assert len(calls) == counts[name]
+    assert len(fake_lib.calls) == counts[name]
 
 
 # ---------------------------------------------------------------------------

@@ -203,51 +203,67 @@ def test_no_fallback_on_a_device_without_kernels():
             pk.fused_partition(x, x, 0.0, 4, 4)
 
 
-def _fused_calls(dtype=torch.bfloat16, device="cpu"):
-    """One call of each fused-kernel wrapper (`ops.fused`) on valid
-    shapes."""
+# the ten kernel wrappers: K1/K5, K2, K2q, K6, K3, K7 (three modes), K8, K9
+KERNEL_WRAPPERS = ("attention", "attention_rows2", "attention_rows2_quant",
+                   "attention_quant", "fused_partition", "adaln",
+                   "residual_adaln", "gated_residual", "qk_norm_rope",
+                   "gelu_pack")
+
+
+def _wrapper_call(name, device="cpu", wrong_dtype=False):
+    """One call of kernel wrapper `name` on valid shapes; `wrong_dtype`:
+    its activations in a dtype its kernel does not take (fp32 for the bf16
+    kernels, bf16 for K3's fp32)."""
     from regione_tpu_torch.ops import fused
-    x = torch.zeros(1, 3, 256, dtype=dtype, device=device)
-    m = torch.zeros(1, 1, 256, dtype=dtype, device=device)
-    scale = torch.ones(128, dtype=dtype, device=device)
-    return (lambda: fused.adaln(x, m, m),
-            lambda: fused.residual_adaln(x, m, x, m, m),
-            lambda: fused.gated_residual(x, m, x),
-            lambda: fused.qk_norm_rope(x, 2, scale),
-            lambda: fused.gelu_pack(x, x))
+    bf16, fp32 = ((torch.float32, torch.bfloat16) if wrong_dtype
+                  else (torch.bfloat16, torch.float32))
+    x = torch.zeros(1, 3, 256, dtype=bf16, device=device)
+    m = torch.zeros(1, 1, 256, dtype=bf16, device=device)
+    q = torch.zeros(1, 2, 4, 128, dtype=bf16, device=device)
+    rows = torch.zeros(1, 2, 4, 128, dtype=torch.int8, device=device)
+    sc = torch.ones(1, 2, 4, device=device)
+    img = torch.zeros(16, 8, dtype=fp32, device=device)
+    calls = {
+        "attention": lambda: fa.attention(q, q, q),
+        "attention_rows2": lambda: fa.attention_rows2(q, q, q, q, q),
+        "attention_rows2_quant": lambda: fa.attention_rows2_quant(
+            q, q, q, rows, rows, sc, sc),
+        "attention_quant": lambda: fa.attention_quant(q, rows, rows, sc, sc),
+        "fused_partition": lambda: pk.fused_partition(img, img, 0.0, 4, 4),
+        "adaln": lambda: fused.adaln(x, m, m),
+        "residual_adaln": lambda: fused.residual_adaln(x, m, x, m, m),
+        "gated_residual": lambda: fused.gated_residual(x, m, x),
+        "qk_norm_rope": lambda: fused.qk_norm_rope(
+            x, 2, torch.ones(128, dtype=bf16, device=device)),
+        "gelu_pack": lambda: fused.gelu_pack(x, x),
+    }
+    return calls[name]()
 
 
-def _fused_counts():
-    from regione_tpu_torch.ops import fused
-    return (fused.adaln.launches, fused.residual_adaln.launches,
-            fused.gated_residual.launches, fused.qk_norm_rope.launches,
-            fused.gelu_pack.launches)
-
-
-def test_fused_kernels_never_fall_back(monkeypatch, tmp_path):
-    """A device with no kernel raises; on the kernel path (a CUDA tensor,
-    stood in for by patching `_kernel_device`) a wrong dtype raises before
-    any build, and with no nvcc to build the library the call raises
-    instead of computing the plain version.  No launch is counted."""
-    from regione_tpu_torch.ops import fused
-    fused.reset_launches()
-    for call in _fused_calls(device="meta"):
-        with pytest.raises(ValueError, match="no .* kernel for device meta"):
-            call()
-    monkeypatch.setattr(fused, "_kernel_device", lambda x, what: True)
-    for call in _fused_calls(dtype=torch.float32):
-        with pytest.raises(TypeError, match="the kernel takes"):
-            call()
+@pytest.mark.parametrize("name", KERNEL_WRAPPERS)
+def test_fused_kernels_never_fall_back(monkeypatch, tmp_path, name):
+    """Each kernel wrapper: a device with no kernel raises; on the kernel
+    path (a CUDA tensor, stood in for by patching `ops.launch.on_card`) a
+    wrong dtype raises before any build, and with no nvcc to build the
+    library the call raises instead of computing the plain version.  No
+    launch is counted."""
+    from regione_tpu_torch.ops import launch
+    from regione_tpu_torch.utils import telemetry
+    telemetry.reset_counters()
+    with pytest.raises(ValueError, match="no .* kernel for device meta"):
+        _wrapper_call(name, device="meta")
+    monkeypatch.setattr(launch, "on_card", lambda x, what: True)
+    with pytest.raises(TypeError, match="the kernel takes"):
+        _wrapper_call(name, wrong_dtype=True)
 
     def no_nvcc():
         raise RuntimeError("nvcc not found")
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
-    for call in _fused_calls():
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            call()
-    assert _fused_counts() == (0,) * 5
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _wrapper_call(name)
+    assert telemetry.counter_totals()[0] == 0
 
 
 def test_fused_entries_are_bound():

@@ -27,6 +27,7 @@ from regione_tpu.models.layers import gather_rope as j_gather_rope
 from regione_tpu.models.layers import rope_table as j_rope_table
 from regione_tpu.models.presets import get_config as j_get_config
 from regione_tpu.pipelines.base import latent_grid_ids, txt_ids
+from regione_tpu_torch.models import kv_cache
 from regione_tpu_torch.models import mmdit as tm
 from regione_tpu_torch.models.layers import gather_rope, rope_table
 from regione_tpu_torch.models.presets import get_config
@@ -189,9 +190,10 @@ def test_cache_int8_and_int4_are_exclusive():
     cfg = dataclasses.replace(get_config("tiny"), cache_int8=True,
                               cache_int4=True)
     with pytest.raises(AssertionError, match="mutually exclusive"):
-        tm.init_cache(cfg, 1, 8, "cpu")
+        kv_cache.init_cache(cfg, 1, 8, "cpu")
     with pytest.raises(ValueError, match="even row count"):
-        tm.init_cache(dataclasses.replace(cfg, cache_int8=False), 1, 7, "cpu")
+        kv_cache.init_cache(dataclasses.replace(cfg, cache_int8=False), 1, 7,
+                            "cpu")
 
 
 def test_rags_bias_masks_pads_and_stale_rows():

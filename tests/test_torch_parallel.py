@@ -38,7 +38,8 @@ from regione_tpu.models.presets import get_config as j_get_config
 from regione_tpu.parallel import sharding as jsharding
 from regione_tpu.utils import memplan as jmemplan
 from regione_tpu_torch.models import layers
-from regione_tpu_torch.models.mmdit import MMDiT, init_cache
+from regione_tpu_torch.models.kv_cache import init_cache
+from regione_tpu_torch.models.mmdit import MMDiT
 from regione_tpu_torch.models.presets import PRESETS, get_config
 from regione_tpu_torch.ops import quant as tquant
 from regione_tpu_torch.parallel import sharding

@@ -27,6 +27,7 @@ from regione_tpu.models.mmdit import init_mmdit
 from regione_tpu.models.presets import get_config as j_get_config
 from regione_tpu.pipelines import qwen_image_edit as jqie
 from regione_tpu.pipelines.base import EditInputs as JEditInputs
+from regione_tpu_torch.models import kv_cache
 from regione_tpu_torch.models.presets import get_config
 from regione_tpu_torch.pipelines import qwen_image_edit as tqie
 from regione_tpu_torch.pipelines.base import EditInputs
@@ -93,7 +94,7 @@ def _qwen_re(**kw):
 def test_qwen_edit_matches_jax(cache):
     jpipe, tpipe = _pipes("QwenImageEditPipeline", cache, _qwen_re())
     assert tpipe.true_cfg_scale == 4.0 and tpipe.do_cfg
-    assert tpipe.cfg.cache_quant == (cache != "bf16")
+    assert kv_cache.cache_format(tpipe.cfg) == cache
     want, jstats, got, tstats = _edit_both(jpipe, tpipe, seed=1)
     assert 0 < tstats.edited_tokens < S, "degenerate partition"
     assert tstats.rags_steps > 0 and tstats.reuse_steps > 0

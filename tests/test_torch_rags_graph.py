@@ -40,7 +40,8 @@ import torch.distributed as dist
 
 from regione_tpu_torch.core.config import RegionEParams
 from regione_tpu_torch.models.connector import ConnectorConfig
-from regione_tpu_torch.models.mmdit import MMDiTConfig, init_cache
+from regione_tpu_torch.models.kv_cache import init_cache
+from regione_tpu_torch.models.mmdit import MMDiTConfig
 from regione_tpu_torch.models.presets import get_config
 from regione_tpu_torch.models.text_encoders import MockTextEncoder
 from regione_tpu_torch.models.vae import VAEConfig

@@ -6,7 +6,8 @@ in parallel processes: a full thread pool in every process oversubscribes
 the cores, and each small op then waits on its pool far longer than it
 computes (about twice the wall time of these files with 6 processes on 8
 cores).  A test that holds a Qwen edit to the JAX package's uses
-`jax_schedule` (below).
+`jax_schedule` (below).  A test that rehearses the kernel wrappers' kernel
+path over CPU tensors uses `fake_lib` (below).
 """
 
 import pytest
@@ -46,3 +47,32 @@ def jax_schedule(monkeypatch):
     spawn = common.spawn_ranks
     monkeypatch.setattr(common, "spawn_ranks", lambda code, *args, **kw:
                         spawn(JAX_SCHEDULE + code, *args, **kw))
+
+
+class FakeLib:
+    """Stands in for the kernels' library (`ops._build.load`): records each
+    call of a C entry as (entry, args) and returns 0 (success), leaving
+    the outputs as allocated."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("regione_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    """The wrappers' kernel path over CPU tensors, faked at the one launch
+    seam (`ops.launch`): `on_card` says launch, the library is a `FakeLib`
+    (returned), and the current stream's handle reads as 0."""
+    from regione_tpu_torch.ops import _build, launch
+    lib = FakeLib()
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(launch, "on_card", lambda x, what: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 0, raising=False)
+    return lib
