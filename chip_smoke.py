@@ -33,6 +33,14 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
      the same function where there is one (`torch.addcmul` for the
      residual alone, `F.gelu` for the GELU alone; timed only); every later MMDiT edit on the card
      launches each of K7-K9 (the checks below read their counts);
+  3c. K10, the K/V cache's quantizer (`ops.quant.store_quantized`,
+     csrc/kv_quant.cu), from the image rows' strided view of a joint
+     buffer into a cache layer: codes and scales bit-equal to the eager
+     `quantize_kv_heads{,4}` at Qwen's write forward (int8 and int4), a
+     FLUX single block's image rows and a Qwen tp 4 rank's 6 heads, with
+     its call and device ms, the eager quantizer's and its bound; every
+     later RegionE edit with an int8 / int4 cache launches K10, and none
+     with a bf16 cache;
   4. small head_dim-128 models: the card's path against the port's CPU
      path on the same weights and inputs: Step1X topology (bf16 cache),
      Qwen topology with the int8 and the int4 cache, Qwen-Image-Edit-Plus
@@ -865,6 +873,79 @@ def phase_fused():
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: K10, the K/V cache's quantizer, against the eager quantizer
+# ---------------------------------------------------------------------------
+
+# (label, B, H, text rows before the image rows, image rows S, bits): Qwen's
+# write forward at 1024^2 (int8, int4), a FLUX single block's image rows at
+# 1024^2, a Qwen tp 4 rank's 6 heads
+KV_QUANT_SHAPES = (("qwen write", 2, 24, 1392, 8192, 8),
+                   ("qwen write int4", 2, 24, 1392, 8192, 4),
+                   ("flux single block", 1, 24, 512, 8192, 8),
+                   ("qwen tp 4 rank", 2, 6, 1392, 8192, 8))
+
+
+def phase_kv_quant(iters=20):
+    """3c: K10 (`ops.quant.store_quantized`) at KV_QUANT_SHAPES, from the
+    image rows' strided view x[:, :, t:] of a joint [B, H, t + S, 128] bf16
+    buffer into layer 1 of a two-layer cache, held bit-equal to the eager
+    `quantize_kv_heads{,4}` and `copy_` into layer 0; the kernel's ms a
+    call (CUDA events) and on the device (its calls in one CUDA graph), the
+    eager path's ms, and the bound (x read once, codes and scales written
+    once, at the HBM rate).  Returns Qwen's int8 and int4 records."""
+    import torch
+    from regione_tpu_torch.ops import quant
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(24)
+    results, ok = {}, True
+    for label, b, h, t_len, s, bits in KV_QUANT_SHAPES:
+        joint = torch.randn((b, h, t_len + s, 128), generator=gen).mul_(3.0)
+        x = joint.to(dev, torch.bfloat16)[:, :, t_len:]
+        rows = torch.zeros((2, b, h, s // 2 if bits == 4 else s, 128),
+                           dtype=torch.int8, device=dev)
+        scales = torch.zeros((2, b, h, s), device=dev)
+        eager = (quant.quantize_kv_heads4 if bits == 4
+                 else quant.quantize_kv_heads)
+
+        def kernel():
+            quant.store_quantized(x, rows[1], scales[1], bits)
+
+        def plain():
+            r, sc = eager(x)
+            rows[0].copy_(r)
+            scales[0].copy_(sc)
+        kernel()
+        plain()
+        torch.cuda.synchronize()
+        max_abs = max(float((rows[1].int() - rows[0].int()).abs().max()),
+                      float((scales[1] - scales[0]).abs().max()))
+        equal = (torch.equal(rows[1], rows[0])
+                 and torch.equal(scales[1], scales[0]))
+        nbytes = x.numel() * 2 + rows[1].numel() + scales[1].numel() * 4
+        ms = cuda_ms(kernel, iters)
+        dev_ms = graph_ms(kernel, iters)
+        pms = cuda_ms(plain, iters)
+        bound_ms, bound_by = bound(4 * x.numel(), nbytes, PEAK_FP32)
+        log(f"3c K10 store_quantized, {label}: int{bits} [{b},{h},{s},128] "
+            f"at row {t_len} of [{b},{h},{t_len + s},128]; codes and scales "
+            f"bit-equal {equal} (max abs diff {max_abs:.3e}); kernel "
+            f"{ms:.4f} ms a call, {dev_ms:.4f} ms on the device (CUDA "
+            f"graph; {nbytes / dev_ms / 1e6:.0f} GB/s), eager {pms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB) "
+            + ("ok" if equal else "FAIL"))
+        ok &= equal
+        if label.startswith("qwen write"):
+            results[f"kv_quant_int{bits}"] = dict(
+                max_abs_err=max_abs, ms=ms, plain_ms=pms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, library=None,
+                graph_ms=dev_ms)
+        del joint, x, rows, scales
+    if not ok:
+        fail("K10 disagrees with the eager quantizer")
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phases 4-6: the small reference, the slice, the profile
 # ---------------------------------------------------------------------------
 
@@ -1049,8 +1130,8 @@ def probe_condition(pipe, sampler, txt, pooled, rope, lat0, r, label,
 def check_edit(label, out, stats, counts, dense, shape, cache):
     """The RegionE edit's checks: finite latents of the right shape, a
     partial partition with RAGS steps, PSNR against dense, and the launch
-    counts of its cache format (K2 for bf16, K2q for int8 / int4; K1 > 0,
-    K3 == 1, each fused wrapper K7-K9 > 0).  Returns the PSNR."""
+    counts of its cache format (K2 for bf16, K2q and K10 for int8 / int4;
+    K1 > 0, K3 == 1, each fused wrapper K7-K9 > 0).  Returns the PSNR."""
     p = psnr(dense, out)
     finite = bool(np.isfinite(dense).all() and np.isfinite(out).all())
     log(f"{label}: edited_tokens {stats.edited_tokens} capacity "
@@ -1064,7 +1145,8 @@ def check_edit(label, out, stats, counts, dense, shape, cache):
     problems = []
     if not (counts["attention"] > 0 and counts[rags] > 0
             and counts[other] == 0 and counts["fused_partition"] == 1
-            and fused_ok(counts)):
+            and fused_ok(counts)
+            and (counts["store_quantized"] > 0) == (cache != "bf16")):
         problems.append(f"launch counts {counts}")
     if not 0 < stats.edited_tokens < stats.seq_len:
         problems.append(f"partition not partial ({stats.edited_tokens})")
@@ -1288,6 +1370,8 @@ def _kernel_group(name: str) -> str:
         return "fused K7/K8/K9 (AdaLN, qk-norm + RoPE, GELU pack)"
     if any(k in n for k in ("gemm", "nvjet", "cutlass", "xmma", "sm90")):
         return "GEMM (cuBLAS)"
+    if "kv_quant_store" in n:
+        return "cache quantizer K10"
     return "other (eager elementwise, copies)"
 
 
@@ -3620,6 +3704,12 @@ FUSED_SRC = "regione_tpu_torch/csrc/fused_block.cu"
 FUSED_REPLACES = ("regione_tpu/core/sampler.py:140 (XLA fusion of "
                   "regione_tpu/models/mmdit.py:140-143, 171-172, 202-208, "
                   "238, 260-264, 286, 558)")
+KV_QUANT_SRC = "regione_tpu_torch/csrc/kv_quant.cu"
+# K10 replaces no Pallas kernel: XLA's fusion of the cache quantizer in the
+# jitted write phase
+KV_QUANT_REPLACES = ("regione_tpu/models/mmdit.py:189, 275 (XLA fusion of "
+                     "regione_tpu/ops/quant.py:296 quantize_kv_heads, :336 "
+                     "quantize_kv_heads4)")
 # record key -> (name, source, TPU kernel replaced, the path whose launch
 # count the record carries, the counter)
 KERNELS = {
@@ -3692,6 +3782,13 @@ KERNELS = {
                         "headline single block: launches per headline "
                         "RegionE edit", FUSED_SRC, FUSED_REPLACES,
                         "headline_edit", "gelu_pack"),
+    "kv_quant_int8": ("K10 store_quantized (int8 cache), Qwen's write "
+                      "[2,24,8192,128] at row 1392: launches per Qwen grid-64 "
+                      "RegionE edit", KV_QUANT_SRC, KV_QUANT_REPLACES,
+                      "qwen_int8", "store_quantized"),
+    "kv_quant_int4": ("K10 store_quantized (int4 cache), Qwen's write: "
+                      "launches per Qwen grid-64 RegionE edit", KV_QUANT_SRC,
+                      KV_QUANT_REPLACES, "qwen_int4", "store_quantized"),
 }
 RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "library")
@@ -3711,6 +3808,10 @@ def main():
     t = time.perf_counter()
     checks.update(phase_fused())
     log(f"phase 3f (the fused block kernels K7-K9) done in "
+        f"{time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    checks.update(phase_kv_quant())
+    log(f"phase 3c (the cache quantizer K10) done in "
         f"{time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     paths = phase_small_reference()

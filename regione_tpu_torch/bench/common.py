@@ -223,6 +223,7 @@ def reset_counts() -> None:
     from regione_tpu_torch.ops import flash_attention as fa
     from regione_tpu_torch.ops import fused  # noqa: F401 (registers)
     from regione_tpu_torch.ops import partition_kernel  # noqa: F401
+    from regione_tpu_torch.ops import quant  # noqa: F401
     from regione_tpu_torch.utils import telemetry
     telemetry.reset_counters()
     fa.attention.long_launches = 0
@@ -233,10 +234,11 @@ def read_counts() -> dict:
     `attention_long`, K2 `attention_rows2`, K2q `attention_rows2_quant`,
     K6 `attention_quant`, K3 `fused_partition`, K7 `adaln`,
     `residual_adaln`, `gated_residual`, K8 `qk_norm_rope`, K9
-    `gelu_pack`)."""
+    `gelu_pack`, K10 `store_quantized`)."""
     from regione_tpu_torch.ops import flash_attention as fa
     from regione_tpu_torch.ops import fused
     from regione_tpu_torch.ops import partition_kernel as pk
+    from regione_tpu_torch.ops import quant
     return {"attention": fa.attention.launches,
             "attention_long": fa.attention.long_launches,
             "attention_rows2": fa.attention_rows2.launches,
@@ -247,7 +249,8 @@ def read_counts() -> dict:
             "residual_adaln": fused.residual_adaln.launches,
             "gated_residual": fused.gated_residual.launches,
             "qk_norm_rope": fused.qk_norm_rope.launches,
-            "gelu_pack": fused.gelu_pack.launches}
+            "gelu_pack": fused.gelu_pack.launches,
+            "store_quantized": quant.store_quantized.launches}
 
 
 def spawn_ranks(code: str, args, n: int, limit: float, label: str,

@@ -15,7 +15,7 @@ import dataclasses
 
 import torch
 
-from regione_tpu_torch.ops.quant import quantize_kv_heads, quantize_kv_heads4
+from regione_tpu_torch.ops.quant import store_quantized
 from regione_tpu_torch.utils import telemetry
 
 CACHE_FORMATS = ("bf16", "int8", "int4")
@@ -116,17 +116,20 @@ def attention_args(k_entry, v_entry):
 
 
 def store_kv(cfg, cache, key: str, i: int, x):
-    """Write mode: layer i's K or V rows into the cache, in place
-    (quantized rows and scales under cache_int8 / cache_int4), in a span
-    `model.cache_write` (CUDA events on x; attrs: the block index, the
-    cache `key`, the rows, the bytes written and the format: int8, int4
-    or the model dtype's name)."""
+    """Write mode: layer i's K or V rows into the cache, in place (a copy
+    in the model dtype; under int8 / int4 the rows and scales quantized
+    straight into the cache by `ops.quant.store_quantized`, K10 on the
+    card), in a span `model.cache_write` (CUDA events on x; attrs: the
+    block index, the cache `key`, the rows, the bytes written and the
+    format: int8, int4 or the model dtype's name)."""
     fmt = cache_format(cfg)
     name = str(cfg.dtype).removeprefix("torch.") if fmt == "bf16" else fmt
     with telemetry.span("model.cache_write", events_on=x, index=i, key=key,
                         rows=x.shape[-2], format=name) as sp:
-        parts = (x,) if fmt == "bf16" else (
-            quantize_kv_heads4 if fmt == "int4" else quantize_kv_heads)(x)
-        for leaf, part in zip((key, key + SCALE_SUFFIX), parts):
-            cache[leaf][i].copy_(part)
+        if fmt == "bf16":
+            parts = (cache[key][i],)
+            parts[0].copy_(x)
+        else:
+            parts = (cache[key][i], cache[key + SCALE_SUFFIX][i])
+            store_quantized(x, *parts, bits=4 if fmt == "int4" else 8)
         sp.set(bytes=sum(p.numel() * p.element_size() for p in parts))

@@ -1,7 +1,8 @@
 """The one seam between the kernel wrappers and the hand-written CUDA kernels.
 
 Every wrapper (K1/K2/K2q/K5/K6 in `ops.flash_attention`, K3 in
-`ops.partition_kernel`, K7-K9 in `ops.fused`) dispatches on its tensor's
+`ops.partition_kernel`, K7-K9 in `ops.fused`, K10, the K/V cache's
+quantizer, in `ops.quant.store_quantized`) dispatches on its tensor's
 device with `on_card` (CPU: its plain `*_reference` version; CUDA: its
 kernel; any other device raises), checks its tensors against the kernels'
 limits with `check` (bf16 unless stated, `HEAD_DIM`, a dense last dim,

@@ -25,7 +25,12 @@ KV cache:
     round(x / scale) clipped to [-127, 127];
   * int4: the same with amax / 7 and [-7, 7], nibble-packed along S in split
     halves: byte (s, d) holds row s in its low nibble and row s + S/2 in its
-    high nibble, so a packed cache has S/2 rows at full head_dim (S even).
+    high nibble, so a packed cache has S/2 rows at full head_dim (S even);
+  * `store_quantized` writes a layer's rows and scales into the cache in
+    place: on a CUDA tensor by one launch of K10 (`csrc/kv_quant.cu`, its
+    codes and scales bit-equal to `quantize_kv_heads{,4}` on the card;
+    counter `store_quantized.launches`, with `.host_ns` / `.launch_ns`), on
+    a CPU tensor by `quantize_kv_heads{,4}` and `copy_`.
 
 Both divide by the scale (as JAX does; a multiply by the reciprocal rounds
 differently) and round half to even (`torch.round`, like `jnp.round`).
@@ -35,10 +40,15 @@ int8 tensor left.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 from torch import nn
+
+from regione_tpu_torch.ops import launch
+from regione_tpu_torch.ops.launch import HEAD_DIM
+from regione_tpu_torch.utils import telemetry
 
 
 def pack_int4(lo, hi):
@@ -92,6 +102,56 @@ def dequantize_kv_heads4(rows_qp, scales, dtype=torch.bfloat16):
     lo, hi = unpack_int4(rows_qp)
     rows = torch.cat([lo, hi], dim=-2).float()
     return (rows * scales[..., None]).to(dtype)
+
+
+def _check_scales(scales, x) -> list[int]:
+    """fp32 scales [B, H, S] for x [B, H, S, dh] on x's device, dense in S
+    (any batch and head strides); returns those two strides."""
+    if scales.device != x.device:
+        raise ValueError(f"scales_out is on {scales.device}, not {x.device}")
+    if scales.dtype != torch.float32:
+        raise TypeError(f"scales_out: the kernel takes torch.float32, got "
+                        f"{scales.dtype}")
+    if scales.shape != x.shape[:3]:
+        raise ValueError(f"scales_out: shape {tuple(scales.shape)} is not "
+                         f"{list(x.shape[:3])}")
+    if scales.shape[2] > 1 and scales.stride(2) != 1:
+        raise ValueError("scales_out: the last dim must be dense")
+    return launch.lead_strides(scales, 2)
+
+
+def store_quantized(x, rows_out, scales_out, bits: int = 8) -> None:
+    """Quantize head-major K/V rows x [B, H, S, dh] into a cache layer, in
+    place: int8 codes into `rows_out` [B, H, S, dh] (bits 4: the packed
+    [B, H, S/2, dh] of `quantize_kv_heads4`, S even) and fp32 scales into
+    `scales_out` [B, H, S].  CPU: `quantize_kv_heads{,4}`, then `copy_`.
+    CUDA: one launch of K10 (bf16 x with any batch, head and row strides,
+    head_dim 128, 16-byte aligned rows), its codes and scales bit-equal to
+    the plain version's on the card; or raises."""
+    t0 = telemetry.clock()
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if bits == 4 and x.shape[-2] % 2:
+        raise ValueError(f"int4 KV packing needs an even row count, got "
+                         f"{x.shape[-2]}")
+    if not launch.on_card(x, "kv_quant_store"):
+        parts = (quantize_kv_heads4 if bits == 4 else quantize_kv_heads)(x)
+        rows_out.copy_(parts[0])
+        scales_out.copy_(parts[1])
+        return
+    dev = x.device
+    strides = launch.check("x", x, dev, (None, None, None, HEAD_DIM))
+    b, h, s, _ = x.shape
+    strides += launch.check("rows_out", rows_out, dev,
+                            (b, h, s // 2 if bits == 4 else s, HEAD_DIM),
+                            torch.int8)
+    strides += _check_scales(scales_out, x)
+    if b * h * s == 0:
+        return
+    strides = (ctypes.c_longlong * 8)(*strides)
+    launch.launch(store_quantized, t0, "regione_kv_quant_store_fwd", dev,
+                  x.data_ptr(), rows_out.data_ptr(), scales_out.data_ptr(),
+                  strides, b, h, s, bits)
 
 
 def dequantize_cache(rows, scales, dtype):
@@ -300,3 +360,6 @@ def init_quantized(cfg, generator: torch.Generator, device="cuda",
         if id(t) not in done:
             t.fill_(1.0 if name.rsplit(".", 1)[-1] == "scale" else 0.0)
     return model.eval()
+
+
+telemetry.register_counters(store_quantized)

@@ -14,8 +14,9 @@
   * the kernel modules import with no triton and no nvcc;
   * CPU tensors take the plain path (no launch is counted), and a device
     with no kernel raises instead of falling back, for every wrapper (the
-    quantized-cache ones and the fused block kernels included); a fused
-    kernel's call on the kernel path with no library to load raises too;
+    quantized-cache ones, the fused block kernels and the cache's
+    quantizer K10 included); a call on the kernel path with no library to
+    load raises too;
   * the kernels' library is named by a hash of the sources, so an edit
     rebuilds; each source compiles in its own nvcc process, then one link
     (a fake nvcc records the commands); the C signatures the loader binds
@@ -43,7 +44,8 @@ import torch
 from regione_tpu_torch.ops import _build
 from regione_tpu_torch.ops import flash_attention as fa
 from regione_tpu_torch.ops import partition_kernel as pk
-from regione_tpu_torch.ops.quant import quantize_kv_heads, quantize_kv_heads4
+from regione_tpu_torch.ops.quant import (quantize_kv_heads, quantize_kv_heads4,
+                                         store_quantized)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -152,12 +154,14 @@ def test_cli_without_a_card_stops_instead_of_using_the_cpu(monkeypatch,
 def _launch_counts():
     return (fa.attention.launches, fa.attention.long_launches,
             fa.attention_rows2.launches, fa.attention_rows2_quant.launches,
-            fa.attention_quant.launches, pk.fused_partition.launches)
+            fa.attention_quant.launches, pk.fused_partition.launches,
+            store_quantized.launches)
 
 
 def test_cpu_tensors_take_the_plain_path():
     fa.reset_launches()
     pk.fused_partition.launches = 0
+    store_quantized.launches = 0
     q = torch.randn(1, 2, 5, 128)
     k = torch.randn(1, 2, 8, 128)
     torch.testing.assert_close(fa.attention(q, k, k),
@@ -178,7 +182,12 @@ def test_cpu_tensors_take_the_plain_path():
     xb = torch.randn(3, 16, 8)
     assert torch.equal(pk.fused_partition(xb, -xb, 0.0, 4, 4),
                        pk.partition_reference(xb, -xb, 0.0, 4, 4))
-    assert _launch_counts() == (0,) * 6
+    for bits, quant_heads in ((8, quantize_kv_heads), (4, quantize_kv_heads4)):
+        rows, sc = (torch.zeros_like(t) for t in quant_heads(k))
+        store_quantized(k, rows, sc, bits)
+        want = quant_heads(k)
+        assert torch.equal(rows, want[0]) and torch.equal(sc, want[1])
+    assert _launch_counts() == (0,) * 7
 
 
 def test_no_fallback_on_a_device_without_kernels():
@@ -201,13 +210,17 @@ def test_no_fallback_on_a_device_without_kernels():
         x = torch.empty(shape, device="meta")
         with pytest.raises(ValueError, match="no partition kernel"):
             pk.fused_partition(x, x, 0.0, 4, 4)
+    for bits in (8, 4):
+        with pytest.raises(ValueError, match="no kv_quant_store kernel"):
+            store_quantized(q[:, :, :4], rows, sc, bits)
 
 
-# the ten kernel wrappers: K1/K5, K2, K2q, K6, K3, K7 (three modes), K8, K9
+# the eleven kernel wrappers: K1/K5, K2, K2q, K6, K3, K7 (three modes), K8,
+# K9, K10
 KERNEL_WRAPPERS = ("attention", "attention_rows2", "attention_rows2_quant",
                    "attention_quant", "fused_partition", "adaln",
                    "residual_adaln", "gated_residual", "qk_norm_rope",
-                   "gelu_pack")
+                   "gelu_pack", "store_quantized")
 
 
 def _wrapper_call(name, device="cpu", wrong_dtype=False):
@@ -236,6 +249,7 @@ def _wrapper_call(name, device="cpu", wrong_dtype=False):
         "qk_norm_rope": lambda: fused.qk_norm_rope(
             x, 2, torch.ones(128, dtype=bf16, device=device)),
         "gelu_pack": lambda: fused.gelu_pack(x, x),
+        "store_quantized": lambda: store_quantized(q, rows, sc, 8),
     }
     return calls[name]()
 

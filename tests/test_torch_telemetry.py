@@ -470,21 +470,22 @@ def test_every_wrapper_is_counted_and_reset():
     from regione_tpu_torch.ops import flash_attention as fa
     from regione_tpu_torch.ops import fused
     from regione_tpu_torch.ops import partition_kernel as pk
+    from regione_tpu_torch.ops import quant
     wrappers = [fa.attention, fa.attention_rows2, fa.attention_rows2_quant,
                 fa.attention_quant, pk.fused_partition, fused.adaln,
                 fused.residual_adaln, fused.gated_residual,
-                fused.qk_norm_rope, fused.gelu_pack]
+                fused.qk_norm_rope, fused.gelu_pack, quant.store_quantized]
     assert sorted(map(id, telemetry._counted)) == sorted(map(id, wrappers))
     saved = [(w.launches, w.host_ns, w.launch_ns) for w in wrappers]
     try:
         for k, w in enumerate(wrappers):
             w.launches, w.host_ns, w.launch_ns = k, 10 * k, 100 * k
         fa.attention.long_launches = 3
-        assert telemetry.counter_totals() == (45, 450, 4500)
+        assert telemetry.counter_totals() == (55, 550, 5500)
         fa.reset_launches()
         fused.reset_launches()
         assert fa.attention.long_launches == 0
-        assert telemetry.counter_totals() == (4, 40, 400)  # K3's alone
+        assert telemetry.counter_totals() == (14, 140, 1400)  # K3's, K10's
         for k, w in enumerate(wrappers):
             w.launches, w.host_ns, w.launch_ns = k, 10 * k, 100 * k
         fa.attention.long_launches = 3
