@@ -10,7 +10,13 @@ Step1X-Edit edit).  A module gives
     info: `mask`, `cos` and the plan statistics) and `knobs.threshold`;
   * optionally `layout(config)`: the weight layout (as `inputs.layout`
     gives it) that the seed's weights are drawn in; without it,
-    `inputs.layout`.
+    `inputs.layout`;
+  * optionally `forward_items(config, rows, s_kv, batch, rags)`: the
+    work items of one forward (see `perfbench/work.py`), for a block
+    whose operations `work.forward_items` does not count; without it,
+    `work.forward_items`.  Its "op" items name groups of
+    `kernel_groups/*.json`, and a test pins its block's products to the
+    published widths.
 
 A module that needs `inputs` imports it; this package imports nothing
 below it until `load` is called, so the import graph has no cycle.  Like

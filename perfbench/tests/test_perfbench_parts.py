@@ -16,7 +16,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-from perfbench import devtrace, harness, inputs, work  # noqa: E402
+from perfbench import devtrace, harness, inputs, reference, work  # noqa: E402
 
 PB = ROOT / "perfbench"
 DATA = Path(__file__).resolve().parent / "data"
@@ -25,6 +25,22 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 
 def tiny(name="tiny-flux-kontext"):
     return json.loads((DATA / "configs" / f"{name}.json").read_text())
+
+
+@pytest.fixture
+def reference_dirs(monkeypatch):
+    """`add(folder, ...)`: `reference.load` also finds modules in these
+    folders for the test; the modules it imported are forgotten after."""
+    before = set(sys.modules)
+
+    def add(*folders):
+        monkeypatch.setattr(reference, "__path__",
+                            [*reference.__path__, *map(str, folders)])
+
+    yield add
+    for name in set(sys.modules) - before:
+        if name.startswith(reference.__name__ + "."):
+            del sys.modules[name]
 
 
 # -- discovery ---------------------------------------------------------------
@@ -56,14 +72,34 @@ def test_every_name_in_the_benchmark_has_its_file():
         assert set(m.get("workloads", cells)) <= set(e2e[m["moves"]])
 
 
-def test_a_new_cell_metric_and_kernel_group_are_files(tmp_path):
-    """A configuration, a mix, a limits file, a per-layer metric and a
-    kernel group added as new files are found by name, no file edited."""
+def test_a_new_cell_metric_and_kernel_group_are_files(tmp_path,
+                                                      reference_dirs,
+                                                      monkeypatch):
+    """A configuration with a reference module that counts its own
+    forwards, a mix, a limits file, per-layer metrics and kernel groups
+    added as new files are found by name and counted, no file edited."""
     pb = tmp_path / "perfbench"
     shutil.copytree(PB, pb, ignore=shutil.ignore_patterns("tests"))
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     conf = tiny()
     conf["name"] = "tiny-new"
+    conf["reference"] = "tiny_new_count"
+    (pb / "reference" / "tiny_new_count.py").write_text(
+        "from perfbench import work\n"
+        "from perfbench.reference.sampler import Reference  # noqa: F401\n"
+        "def forward_items(config, rows, s_kv, batch, rags):\n"
+        "    return work.forward_items(config, rows, s_kv, batch, rags) \\\n"
+        "        + [('op', 'tinyop', 1000.0 * batch * rows)]\n")
+    (pb / "kernel_groups" / "tinyop.json").write_text(json.dumps(
+        {"group": "tinyop", "priority": 6, "patterns": ["my_tiny_op"]}))
+    (pb / "metrics" / "kernels.tinyop_roofline.py").write_text(
+        "from perfbench import work\n"
+        "def read(run):\n"
+        "    dev = run.trace['by_group'].get('tinyop', 0.0)\n"
+        "    least = sum(work.totals(work.edit_items(\n"
+        "        run.config, run.grid, e['stats']), 'tinyop')[1]\n"
+        "        for e in run.edits)\n"
+        "    return 100.0 * least / dev if dev > 0.0 else None\n")
     (pb / "configs" / "tiny-new.json").write_text(json.dumps(conf))
     mix = json.loads((DATA / "mixes" / "tiny-local.json").read_text())
     (pb / "mixes" / "tiny-new-mix.json").write_text(json.dumps(mix))
@@ -85,21 +121,47 @@ def test_a_new_cell_metric_and_kernel_group_are_files(tmp_path):
                                "source": "program_counter",
                                "layer": "sampler", "moves": "edit_s",
                                "workloads": ["tiny-new.tiny-new-mix"]})
+    bench["per_layer"].append({"name": "kernels.tinyop_roofline",
+                               "unit": "%", "better": "higher",
+                               "source": "device_trace",
+                               "layer": "kernels", "moves": "edit_s",
+                               "workloads": ["tiny-new.tiny-new-mix"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     paths = harness.Paths(bench=tmp_path / "BENCHMARK.json", root=tmp_path,
                           mixes=pb / "mixes", limits=pb / "limits",
                           metrics=pb / "metrics",
                           end_to_end=pb / "end_to_end",
                           groups=pb / "kernel_groups")
+    reference_dirs(pb / "reference")
+    # the copy's kernel groups stand in for the repo's
+    monkeypatch.setattr(work, "GROUPS_DIR", pb / "kernel_groups")
     cell = harness.load_cell(paths, "tiny-new.tiny-new-mix")
     assert cell["config"]["name"] == "tiny-new"
+    assert cell["reference"].__file__ == str(pb / "reference"
+                                             / "tiny_new_count.py")
     assert [m["name"] for k, m in cell["metrics"] if k == "per_layer"] == \
-        ["sampler.edits_seen"]
+        ["sampler.edits_seen", "kernels.tinyop_roofline"]
     read = harness.load_reader(pb / "metrics" / "sampler.edits_seen.py")
     assert read(type("R", (), {"edits": [1, 2]})()) == 2.0
     groups = devtrace.load_groups(pb / "kernel_groups")
     assert devtrace.group_of("my_new_attn_kernel<4>", groups) == "attention"
     assert devtrace.group_of("nvjet_tst_128x256", groups) == "gemm"
+    assert devtrace.group_of("my_tiny_op_kernel<2>", groups) == "tinyop"
+    # the module's op is counted under its group, and nowhere else
+    stats = {"edited_tokens": 5, "capacity": 8, "dense_steps": 9,
+             "rags_steps": 19, "reuse_steps": 13}
+    items = work.edit_items(cell["config"], 4, stats)
+    default = work.forward_items(cell["config"], 32, 32, 1, False)
+    assert items[:len(default)] == default
+    least = (9 * 1000.0 * 32 + 6 * 1000.0 * 5) / work.HBM_BYTES_PER_S
+    assert work.totals(items, "tinyop") == (0.0, pytest.approx(least))
+    record = harness.RunRecord(
+        config=cell["config"], mix=cell["mix"], grid=4,
+        edits=[{"stats": stats}] * 2, window_s=1.0, setup_s=1.0,
+        peak_window_bytes=0, spans=[], groups=groups,
+        trace={"by_group": {"tinyop": 4 * least}})
+    read = harness.load_reader(pb / "metrics" / "kernels.tinyop_roofline.py")
+    assert read(record) == pytest.approx(50.0)
 
 
 # -- inputs ----------------------------------------------------------------
@@ -209,6 +271,192 @@ def test_gemm_and_attention_counts_by_hand():
         2 * (2 * 2 * 3 * 5 * 128 + 2 * 2 * 3 * 7 * 128))
     assert work.bound_s(989e12, 0.0) == 1.0
     assert work.bound_s(0.0, 3.35e12) == 1.0
+
+
+def test_op_items_are_bytes_under_their_group():
+    """("op", group, nbytes): its least time is its bytes at the HBM
+    rate, filed under its group's name; it adds no FLOPs to a total."""
+    op = ("op", "fused", 6.7e12)
+    assert work.work(op) == (0.0, 6.7e12)
+    gemm = ("gemm", 64, 64, 64)
+    items = [gemm, op, ("op", "fused", 3.35e9), ("op", "partition", 3.35e6)]
+    assert work.totals(items, "fused") == (0.0, pytest.approx(2.001))
+    assert work.totals(items, "partition") == (0.0, pytest.approx(1e-6))
+    assert work.totals(items, "gemm") == work.totals([gemm])
+    assert work.totals(items)[0] == work.gemm_work(64, 64, 64)[0]
+    assert work.totals(items)[1] == pytest.approx(
+        work.totals([gemm])[1] + 2.001 + 1e-6)
+
+
+def test_op_items_reach_the_roofline_of_their_group():
+    """An op of the "attention" or "gemm" group is counted with the
+    attentions or the linears, under the group's name or the item kind's:
+    the readers ask for "attn" and "gemm"."""
+    attn, gemm = ("attn", 1, 2, 64, 64, 32), ("gemm", 64, 64, 64)
+    items = [attn, gemm, ("op", "attention", 3.35e9), ("op", "gemm", 6.7e9)]
+    for kind in ("attn", "attention"):
+        assert work.totals(items, kind) == (
+            work.totals([attn])[0],
+            pytest.approx(work.totals([attn])[1] + 1e-3))
+    assert work.totals(items, "gemm") == (
+        work.totals([gemm])[0], pytest.approx(work.totals([gemm])[1] + 2e-3))
+    assert [work.group(it) for it in items] == \
+        ["attention", "gemm", "attention", "gemm"]
+
+
+@pytest.mark.parametrize("kind", ["attention", "norm", "Gemm"])
+def test_an_item_of_unknown_kind_raises(kind):
+    """An item of a kind `work` does not know is an error, in every total:
+    it was once counted as an attention."""
+    items = [("gemm", 4, 4, 4), (kind, 1, 2, 3, 4, 5)]
+    with pytest.raises(ValueError, match="unknown kind"):
+        work.work(items[1])
+    for group in (None, "gemm", "attn", "fused"):
+        with pytest.raises(ValueError, match="unknown kind"):
+            work.totals(items, group)
+
+
+# (len, and (FLOPs, least seconds) of `work.totals` over all items, "gemm"
+# and "attn") of `work.edit_items` a cell at STATS[grid], as the work.py of
+# commit 3faa3aa, whose count was the same for every configuration, gives
+# them; from the root of a clone:
+#   git show 3faa3aa:perfbench/work.py > build/work_parent.py
+#   PYTHONPATH=build:perfbench/tests python3 -c "import work_parent as w, \
+#       test_perfbench_parts as t; print(t.cell_totals(w))"
+STATS = {64: {"edited_tokens": 1142, "capacity": 1280, "dense_steps": 9,
+              "rags_steps": 19, "reuse_steps": 13},
+         32: {"edited_tokens": 308, "capacity": 384, "dense_steps": 9,
+              "rags_steps": 19, "reuse_steps": 13}}
+PARENT_TOTALS = {
+    "flux-kontext.local-1024": (6705, [
+        (1677867684986880.0, 1.726053640595702),
+        (1139797579530240.0, 1.181998933359446),
+        (538070105456640.0, 0.5440547072362428)]),
+    "step1x-edit.local-512": (7005, [
+        (644430291271680.0, 0.6878028007287084),
+        (576743913553920.0, 0.6193047551143487),
+        (67686377717760.0, 0.06849804561435323)]),
+    "step1x-edit.local-1024": (7005, [
+        (3095340114247680.0, 3.1663281757060546),
+        (2133792923320320.0, 2.1940274878171095),
+        (961547190927360.0, 0.9723006878889842)]),
+    "qwen-image-edit.local-1024": (13590, [
+        (4192897487339520.0, 4.300772972993711),
+        (2759046196101120.0, 2.850973891862236),
+        (1433851291238400.0, 1.4497990811308072)])}
+
+
+def cell_totals(w=work) -> dict:
+    """What PARENT_TOTALS pins, by the `work` module `w`."""
+    out = {}
+    for cell in (c for c in BENCH["workloads"] if c["name"] in PARENT_TOTALS):
+        conf = next(c for c in BENCH["configs"] if c["name"] == cell["config"])
+        grid = json.loads((PB / "mixes" / f"{cell['traffic']}.json")
+                          .read_text())["grid"]
+        items = w.edit_items(json.loads((ROOT / conf["file"]).read_text()),
+                             grid, STATS[grid])
+        out[cell["name"]] = (len(items), [w.totals(items, k)
+                                          for k in (None, "gemm", "attn")])
+    return out
+
+
+def test_the_benchmarks_cells_count_as_before():
+    """The four cells that were there before a configuration could bring
+    its own count bring none: each cell's edit counts the parent's items
+    to the last bit.  A cell added later is not this test's."""
+    for cell in (c for c in BENCH["workloads"] if c["name"] in PARENT_TOTALS):
+        conf = next(c for c in BENCH["configs"] if c["name"] == cell["config"])
+        mod = reference.load(json.loads((ROOT / conf["file"]).read_text()))
+        assert not hasattr(mod, "forward_items"), cell["name"]
+    assert cell_totals() == PARENT_TOTALS
+
+
+def _counting_configs():
+    """Every configuration, of the benchmark or of the tests' data, whose
+    reference module gives `forward_items`, with a grid to count it at."""
+    grids = {c["config"]: json.loads((PB / "mixes" / f"{c['traffic']}.json")
+                                     .read_text())["grid"]
+             for c in BENCH["workloads"]}
+    confs = [(json.loads((ROOT / c["file"]).read_text()), grids[c["name"]])
+             for c in BENCH["configs"]]
+    confs += [(json.loads(f.read_text()), 64)
+              for f in sorted((DATA / "configs").glob("*.json"))]
+    return [(conf, g if g in STATS else 64) for conf, g in confs
+            if hasattr(reference.load(conf), "forward_items")]
+
+
+def test_every_op_a_configuration_counts_is_a_kernel_group(reference_dirs):
+    """An op filed under a group that no `kernel_groups/*.json` names would
+    be held against no device time: each module's ops name known groups."""
+    reference_dirs(DATA / "reference")
+    known = {g for g, _ in devtrace.load_groups(PB / "kernel_groups")}
+    confs = _counting_configs()
+    assert "flux2-dev-shaped" in [c["name"] for c, _ in confs]
+    for conf, grid in confs:
+        items = work.edit_items(conf, grid, STATS[grid])
+        assert {work.group(it) for it in items} <= known, conf["name"]
+
+
+def test_an_op_of_no_kernel_group_raises(tmp_path, reference_dirs):
+    """A misspelled group stops the count instead of being counted
+    nowhere."""
+    (tmp_path / "misspelled_count.py").write_text(
+        "from perfbench import work\n"
+        "def forward_items(config, rows, s_kv, batch, rags):\n"
+        "    return work.forward_items(config, rows, s_kv, batch, rags) \\\n"
+        "        + [('op', 'fusd', 64.0 * rows)]\n")
+    reference_dirs(tmp_path)
+    conf = tiny()
+    conf["reference"] = "misspelled_count"
+    with pytest.raises(ValueError, match="fusd"):
+        work.edit_items(conf, 4, STATS[64])
+
+
+def _block_gemm_flops(conf, items, batch):
+    """FLOPs of the linears over token rows inside the blocks: not the
+    image and text embedders (their K) and not the output projection
+    (its N)."""
+    m = conf["model"]
+    return sum(work.gemm_work(*it[1:])[0] for it in items
+               if it[0] == "gemm" and it[1] > batch
+               and it[3] not in (m["in_channels"], m["txt_in_dim"])
+               and it[2] != m["out_channels"])
+
+
+def test_a_configurations_own_count_replaces_the_default(reference_dirs):
+    """FLUX.2 [dev]'s shape (SwiGLU ratio 3, shared modulation, 8 + 48
+    blocks of hidden 6144) through its module's `forward_items`: a dense
+    1024^2 forward (8192 image rows, 512 text) counts 13 hidden^2 products
+    a block and token, where the default count gives 10."""
+    reference_dirs(DATA / "reference")
+    conf = tiny("flux2-dev-shaped")
+    mod = reference.load(conf)
+    h, rows, tokens, blocks = 6144, 8192, 8704, 56
+    dense = mod.forward_items(conf, rows, rows, 1, False)
+    default = work.forward_items(conf, rows, rows, 1, False)
+    assert _block_gemm_flops(conf, dense, 1) == 2 * 13 * h * h * blocks * tokens
+    assert _block_gemm_flops(conf, dense, 1) == pytest.approx(4.7839e14,
+                                                              rel=1e-4)
+    assert _block_gemm_flops(conf, default, 1) == \
+        2 * 10 * h * h * blocks * tokens
+    assert _block_gemm_flops(conf, default, 1) == pytest.approx(3.6799e14,
+                                                                rel=1e-4)
+    # the attention is the same call in both counts
+    assert [it for it in dense if it[0] == "attn"] == \
+        [it for it in default if it[0] == "attn"]
+    assert work.totals(dense, "attn")[0] == pytest.approx(1.043e14, rel=1e-3)
+    # modulation once a forward, not once a block
+    assert sum(it[0] == "gemm" and it[1] == 1 for it in dense) == 8
+    assert sum(it[0] == "gemm" and it[1] == 1 for it in default) == \
+        4 + 2 * 8 + 48 + 1
+    # `edit_items` takes the module's count, dense and RAGS forwards alike
+    stats = STATS[64]
+    items = work.edit_items(conf, 64, stats)
+    rags = mod.forward_items(conf, stats["edited_tokens"], rows, 1, True)
+    assert items == dense * 9 + rags * 6
+    gate = sum(it[2] for it in items if it[0] == "op")
+    assert work.totals(items, "fused") == (
+        0.0, pytest.approx(gate / work.HBM_BYTES_PER_S))
 
 
 def test_forward_items_of_one_small_shape_by_hand():

@@ -10,15 +10,30 @@ RAGS query needs the text, the edited rows and the stored K / V of every
 other image row; an edited row's stale entry is not needed).
 
 A forward is a list of items: ("gemm", M, N, K) for a linear (bf16
-operands, a bias of N) and ("attn", B, H, T, S, D) for an attention of T
-queries over S keys.
+operands, a bias of N), ("attn", B, H, T, S, D) for an attention of T
+queries over S keys, and ("op", group, nbytes) for a bandwidth-bound
+kernel of a kernel group (`kernel_groups/*.json`) that moves `nbytes`
+and does no product.  An item of any other kind is an error.  Every item
+belongs to a kernel group, the one whose device time its least time is
+held against: a "gemm" to "gemm", an "attn" to "attention", an "op" to
+its own, which has to be a group of `GROUPS_DIR`.
+
+Whose count: a configuration's reference module (`reference.load`) may
+give `forward_items(config, rows, s_kv, batch, rags)` for a block this
+file's `forward_items` does not describe (a gated MLP, modulation shared
+by every block, a fused kernel of its own); `edit_items` takes that one
+where it is given and this file's otherwise.
 """
 
 from __future__ import annotations
 
+from perfbench import devtrace, reference
+
 PEAK_BF16 = 989e12          # FLOP/s, dense bf16 tensor cores
 HBM_BYTES_PER_S = 3.35e12   # bytes/s
 BYTES = 2                   # bf16
+KIND_GROUP = {"gemm": "gemm", "attn": "attention"}
+GROUPS_DIR = devtrace.GROUPS_DIR
 
 
 def bound_s(flops: float, nbytes: float) -> float:
@@ -40,8 +55,24 @@ def attention_work(b: int, h: int, t: int, s: int, d: int
 
 
 def work(item) -> tuple[float, float]:
+    """(FLOPs, bytes) of one item."""
     kind, *dims = item
-    return gemm_work(*dims) if kind == "gemm" else attention_work(*dims)
+    if kind == "gemm":
+        return gemm_work(*dims)
+    if kind == "attn":
+        return attention_work(*dims)
+    if kind == "op":
+        return 0.0, float(dims[1])
+    raise ValueError(f"work item of unknown kind: {item!r}")
+
+
+def group(item) -> str:
+    """The kernel group of one item."""
+    if item[0] == "op":
+        return item[1]
+    if item[0] in KIND_GROUP:
+        return KIND_GROUP[item[0]]
+    raise ValueError(f"work item of unknown kind: {item!r}")
 
 
 def forward_items(config: dict, rows: int, s_kv: int, batch: int,
@@ -94,23 +125,34 @@ def forward_items(config: dict, rows: int, s_kv: int, batch: int,
 def edit_items(config: dict, grid: int, stats: dict) -> list[tuple]:
     """Every forward of one edit by its plan statistics: the dense
     forwards over noise + condition rows, the computed RAGS forwards over
-    the edited tokens."""
+    the edited tokens; each forward counted by the configuration's own
+    `forward_items` where its reference module gives one."""
+    count = getattr(reference.load(config), "forward_items", forward_items)
     s = grid * grid
     batch = 2 if float(config["guidance"].get("true_cfg_scale", 1.0)) > 1 \
         else 1
     n_rags = stats["rags_steps"] - stats["reuse_steps"]
-    return (forward_items(config, 2 * s, 2 * s, batch, False)
-            * stats["dense_steps"]
-            + forward_items(config, stats["edited_tokens"], 2 * s, batch,
-                            True) * n_rags)
+    items = (count(config, 2 * s, 2 * s, batch, False) * stats["dense_steps"]
+             + count(config, stats["edited_tokens"], 2 * s, batch, True)
+             * n_rags)
+    ops = {it[1] for it in items if it[0] == "op"}
+    if ops:
+        stray = ops - {g for g, _ in devtrace.load_groups(GROUPS_DIR)}
+        if stray:
+            raise ValueError(
+                f"configuration {config.get('name')!r} counts op items of "
+                f"{sorted(stray)}, which no kernel_groups/*.json names")
+    return items
 
 
 def totals(items, kind: str | None = None) -> tuple[float, float]:
-    """(FLOPs, least seconds) over the items of `kind` (None: all)."""
+    """(FLOPs, least seconds) over the items of one kernel group, named
+    by the group or by an item kind ("attn" is "attention"; None: all)."""
+    want = KIND_GROUP.get(kind, kind)
     flops = least = 0.0
     for it in items:
-        if kind is None or it[0] == kind:
-            f, nb = work(it)
+        f, nb = work(it)
+        if want is None or group(it) == want:
             flops += f
             least += bound_s(f, nb)
     return flops, least
