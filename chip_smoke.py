@@ -31,8 +31,14 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
      K9 only) and a ragged B 1 (8283 rows); each with its kernel and plain
      ms and its bound (bytes at the HBM rate), and the one PyTorch call of
      the same function where there is one (`torch.addcmul` for the
-     residual alone, `F.gelu` for the GELU alone; timed only); every later MMDiT edit on the card
-     launches each of K7-K9 (the checks below read their counts);
+     residual alone, `F.gelu` for the GELU alone; timed only); then
+     FLUX.2 [dev]'s shapes: K7's three modes at hidden 6144 ([1, 8704,
+     6144], a dense 1024^2 forward's [txt ‖ img] stream) and K11 [attn ‖
+     silu(a) * b], bit for bit, over a single block's linear1 output (the
+     gate of [1, 8704, 36864] at row stride 55296, attn [1, 8704, 6144])
+     and the gate alone over a double block's [1, 4096, 36864]; every later
+     MMDiT edit on the card launches each of K7 and K8, and K9 or (FLUX.2)
+     K11 (the checks below read their counts);
   3c. K10, the K/V cache's quantizer (`ops.quant.store_quantized`,
      csrc/kv_quant.cu), from the image rows' strided view of a joint
      buffer into a cache layer: codes and scales bit-equal to the eager
@@ -45,7 +51,9 @@ Phases, each printing its lines and seconds; any failure exits non-zero:
      path on the same weights and inputs: Step1X topology (bf16 cache),
      Qwen topology with the int8 and the int4 cache, Qwen-Image-Edit-Plus
      with two 64 x 64 references (dense S past 12,288: K5), and
-     `sdpa_cached` over a quantized cache alone (K6); then, on the card
+     `sdpa_cached` over a quantized cache alone (K6), and the FLUX.2
+     topology (SwiGLU through K11, shared modulation, no biases, 4-axis
+     ids) with the int8 cache; then, on the card
      alone, the Step1X topology with 64 in / out channels at grid 160
      (S 25,600, a 2560 x 2560 image): a dense and a RegionE edit, K3 once,
      a partial partition, latent PSNR against dense;
@@ -695,24 +703,29 @@ def phase_kernels(grid, qwen_grid):
 
 
 # ---------------------------------------------------------------------------
-# phase 3f: the fused block kernels K7-K9 against their plain versions
+# phase 3f: the fused block kernels K7-K9 and K11 against their plain
+# versions
 # ---------------------------------------------------------------------------
 
-# the fused kernels' launch counters (`ops.fused`, `read_counts` keys)
+# the fused kernels' launch counters (`ops.fused`, `read_counts` keys); the
+# last two are the MLP's gates, K9 (GELU) and K11 (SwiGLU, FLUX.2)
 FUSED = ("adaln", "residual_adaln", "gated_residual", "qk_norm_rope",
-         "gelu_pack")
+         "gelu_pack", "swiglu_pack")
 
 
 def fused_ok(counts) -> bool:
     """Every MMDiT forward on the card launches each fused wrapper: K7's
-    three modes, K8 and K9 (the double block's GELU-only mode at least)."""
-    return all(counts[k] > 0 for k in FUSED)
+    three modes, K8, and one MLP gate, K9 or K11 (the double block's
+    gate-only mode at least), never both."""
+    gates = [counts[k] > 0 for k in FUSED[-2:]]
+    return all(counts[k] > 0 for k in FUSED[:-2]) and sum(gates) == 1
 
 
 def check_fused(label, kernel, plain, nbytes, flops, iters=10,
-                library=(None, None)):
+                library=(None, None), exact=False):
     """A fused kernel's bf16 output(s) against its plain version on the
-    same inputs, within ATTN_REL_BOUND of the output's scale; kernel and
+    same inputs, within ATTN_REL_BOUND of the output's scale (`exact`:
+    bit for bit, as `torch.equal`); kernel and
     plain ms by CUDA events (the kernel's a call from Python, and on the
     device: its calls captured in one CUDA graph); bound: `nbytes` (inputs
     read once, outputs written once) at the HBM rate or `flops` at the
@@ -730,13 +743,16 @@ def check_fused(label, kernel, plain, nbytes, flops, iters=10,
     scale = max(float(w.float().abs().max()) for w in want)
     ok = all(bool(torch.isfinite(g).all()) and g.shape == w.shape
              for g, w in zip(got, want)) and max_abs <= ATTN_REL_BOUND * scale
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    ok = ok and (same or not exact)
     ms = cuda_ms(kernel, iters)
     dev_ms = graph_ms(kernel, iters)
     pms = cuda_ms(plain, iters)
     lib_ms = cuda_ms(library[0], iters) if library[0] else None
     bound_ms, bound_by = bound(flops, nbytes, PEAK_FP32)
     log(f"{label}: max_abs {max_abs:.3e} max_rel {max_abs / scale:.3e} "
-        f"(bound {ATTN_REL_BOUND:.0e} x {scale:.3e}) kernel {ms:.4f} ms a "
+        f"(bound {ATTN_REL_BOUND:.0e} x {scale:.3e}"
+        + (f"; bit-equal {same}" if exact else "") + f") kernel {ms:.4f} ms a "
         f"call, {dev_ms:.4f} ms on the device (CUDA graph; "
         f"{nbytes / dev_ms / 1e6:.0f} GB/s), plain {pms:.4f} ms, bound "
         f"{bound_ms:.4f} ms by {bound_by}, library "
@@ -767,7 +783,8 @@ def phase_fused():
     image rows packed at offset t_txt; v's packing alone) and K9 (the
     single block's [attn ‖ gelu(mlp_h)] from the strided split; the
     double block's GELU alone) at FUSED_SHAPES (K7 where the entry says
-    so), each against its plain version.  Returns the headline's records."""
+    so), each against its plain version; then FLUX.2's K7 and K11
+    (`check_flux2_fused`).  Returns the headline's records and FLUX.2's."""
     import torch
     import torch.nn.functional as F
     from regione_tpu_torch.models.layers import rope_table
@@ -867,9 +884,69 @@ def phase_fused():
         if label == "headline":
             results.update({f"fused_{k}": v for k, v in recs.items()})
         del x, y, wide, packed, proj, attn
+    flux2 = check_flux2_fused(t)
+    ok &= all(r["ok"] for r in flux2.values())
+    results.update(flux2)
     if not ok:
         fail("a fused kernel disagrees with its plain version")
     return results
+
+
+def check_flux2_fused(t, rows=8704, h=6144, inner=6144, mlp=18432):
+    """FLUX.2 [dev]'s shapes (1024^2 edit: 512 text + 4096 noise + 4096
+    reference rows): K7's three modes at [1, rows, h], the 24-chunk
+    instantiation; K11 over a single block's linear1 output [1, rows, 3 *
+    inner + 2 * mlp] (the gate at that row stride) with attn [1, rows,
+    inner], and the gate alone over a double block's MLP input projection
+    [1, 4096, 2 * mlp]; K11 bit for bit (it rounds where `F.silu(a) * b`
+    does).  `t(*shape, scale)`: a seeded bf16 tensor on the card.  Returns
+    the records (`fused_flux2_*`, `fused_swiglu_pack`)."""
+    import torch.nn.functional as F
+    from regione_tpu_torch.ops import fused
+    x, y = t(1, rows, h, scale=2.0), t(1, rows, h)
+    shift, scale, gate = t(1, 1, 6 * h, scale=0.3).chunk(6, dim=-1)[:3]
+    row, e = rows * h * 2, rows * h
+    shape = f"FLUX.2 [1,{rows},{h}]"
+    recs = {
+        "fused_flux2_adaln": check_fused(
+            f"3f K7 adaln, {shape}",
+            lambda: fused.adaln(x, shift, scale),
+            lambda: fused.adaln_reference(x, shift, scale), 2 * row,
+            12 * e),
+        "fused_flux2_residual_adaln": check_fused(
+            f"3f K7 residual_adaln, {shape}",
+            lambda: fused.residual_adaln(x, gate, y, shift, scale),
+            lambda: (fused.gated_residual_reference(x, gate, y),
+                     fused.adaln_reference(
+                         fused.gated_residual_reference(x, gate, y),
+                         shift, scale)),
+            4 * row, 14 * e),
+        "fused_flux2_gated_residual": check_fused(
+            f"3f K7 gated_residual, {shape}",
+            lambda: fused.gated_residual(x, gate, y),
+            lambda: fused.gated_residual_reference(x, gate, y), 3 * row,
+            2 * e)}
+    del x, y
+    wide = t(1, rows, 3 * inner + 2 * mlp, scale=2.0)
+    attn, gated = t(1, rows, inner), wide[..., 3 * inner:]
+    # reads attn and both halves once, writes [attn ‖ gate]; silu(a) * b
+    # is about 5 operations an output column
+    recs["fused_swiglu_pack"] = check_fused(
+        f"3f K11 swiglu_pack, FLUX.2 single block: [1,{rows},{inner}] ‖ "
+        f"the gate of [1,{rows},{2 * mlp}] (row stride {wide.stride(1)})",
+        lambda: fused.swiglu_pack(attn, gated),
+        lambda: fused.swiglu_pack_reference(attn, gated),
+        2 * rows * (2 * inner + 3 * mlp), 5 * rows * mlp, exact=True)
+    del wide, attn, gated
+    img = t(1, 4096, 2 * mlp, scale=2.0)
+    a, b = img.chunk(2, dim=-1)
+    recs["fused_flux2_swiglu_gate"] = check_fused(
+        f"3f K11 the gate alone, FLUX.2 double block: [1,4096,{2 * mlp}]",
+        lambda: fused.swiglu_pack(None, img),
+        lambda: fused.swiglu_pack_reference(None, img),
+        2 * 4096 * 3 * mlp, 5 * 4096 * mlp, exact=True,
+        library=(lambda: F.silu(a) * b, "F.silu(a) * b"))
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -1035,7 +1112,8 @@ def phase_small_reference():
     Step1X topology (bf16 cache); the Qwen topology (joint double blocks,
     txt_norm) with (a) the int8 and (b) the int4 cache; (c) Plus with two
     64 x 64 references, whose dense steps attend over 16 + 3 x 4096 keys,
-    past the resident budget (K5).  Then `sdpa_cached` over a quantized
+    past the resident budget (K5); (d) the FLUX.2 topology with the int8
+    cache (`check_flux2_small`: K11).  Then `sdpa_cached` over a quantized
     cache alone (K6).  Returns each path's card launch counts."""
     import torch
     from regione_tpu_torch.core.config import RegionEParams
@@ -1068,6 +1146,7 @@ def phase_small_reference():
         if not (c["attention_rows2_quant"] > 0 and c["attention_rows2"] == 0
                 and c["attention"] > 0):
             fail(f"qwen int{bits} small reference: launch counts {c}")
+    counts["flux2_small"] = check_flux2_small(small, re, forced)
     # (c) Plus: noise 64 x 64 and two 64 x 64 references: dense S = 16 +
     # 12,288 keys; one attention head keeps the CPU reference short
     forced = np.zeros((64, 64), bool)
@@ -1084,6 +1163,26 @@ def phase_small_reference():
     counts["plus"] = c
     counts.update(check_sdpa_cached_alone())
     return counts
+
+
+def check_flux2_small(small, re, forced):
+    """The FLUX.2 topology at phase 4's small widths (mlp ratio 3, two
+    double and two single blocks), SwiGLU through K11, shared modulation,
+    no biases, 4-axis ids, the int8 cache of the flux2-dev cell, card
+    against CPU: its card edit's launch counts (K11, never K9)."""
+    from regione_tpu_torch.models.mmdit import MMDiTConfig
+    from regione_tpu_torch.pipelines.flux2 import Flux2Pipeline
+    cfg = MMDiTConfig(**{**small, "mlp_ratio": 3.0}, depth_single=2,
+                      txt_in_dim=64, pooled_dim=0, guidance_embed=True,
+                      axes_dims=(32, 32, 32, 32), rope_theta=2000.0,
+                      flux2_block=True)
+    c = card_vs_cpu("flux2 topology, int8 cache",
+                    kv_cache.with_cache_format(cfg, "int8"), Flux2Pipeline,
+                    re, 8, 16, forced)
+    if not (c["swiglu_pack"] > 0 and c["gelu_pack"] == 0 and fused_ok(c)
+            and c["attention_rows2_quant"] > 0 and c["store_quantized"] > 0):
+        fail(f"flux2 small reference: launch counts {c}")
+    return c
 
 
 def check_sdpa_cached_alone():
@@ -1366,8 +1465,8 @@ def _kernel_group(name: str) -> str:
     if "partition_kernel" in n:
         return "partition K3"
     if any(k in n for k in ("fused_adaln", "fused_qk_norm_rope",
-                            "fused_gelu_pack")):
-        return "fused K7/K8/K9 (AdaLN, qk-norm + RoPE, GELU pack)"
+                            "fused_gelu_pack", "fused_swiglu_pack")):
+        return "fused K7/K8/K9/K11 (AdaLN, qk-norm + RoPE, MLP gate)"
     if any(k in n for k in ("gemm", "nvjet", "cutlass", "xmma", "sm90")):
         return "GEMM (cuBLAS)"
     if "kv_quant_store" in n:
@@ -3704,6 +3803,8 @@ FUSED_SRC = "regione_tpu_torch/csrc/fused_block.cu"
 FUSED_REPLACES = ("regione_tpu/core/sampler.py:140 (XLA fusion of "
                   "regione_tpu/models/mmdit.py:140-143, 171-172, 202-208, "
                   "238, 260-264, 286, 558)")
+# K11 replaces nothing of the JAX package, which has no FLUX.2 backbone
+SWIGLU_REPLACES = "none (the JAX package has no SwiGLU MLP)"
 KV_QUANT_SRC = "regione_tpu_torch/csrc/kv_quant.cu"
 # K10 replaces no Pallas kernel: XLA's fusion of the cache quantizer in the
 # jitted write phase
@@ -3782,6 +3883,16 @@ KERNELS = {
                         "headline single block: launches per headline "
                         "RegionE edit", FUSED_SRC, FUSED_REPLACES,
                         "headline_edit", "gelu_pack"),
+    "fused_flux2_adaln": ("K7 adaln at FLUX.2's [1,8704,6144] (the "
+                          "24-chunk instantiation): launches per RegionE "
+                          "edit of phase 4's small FLUX.2 topology",
+                          FUSED_SRC, FUSED_REPLACES, "flux2_small", "adaln"),
+    "fused_swiglu_pack": ("K11 swiglu_pack ([attn ‖ silu(a) * b]; the double"
+                          " block's gate-only mode counted too), FLUX.2's "
+                          "single block [1,8704,6144] ‖ the gate of "
+                          "[1,8704,36864]: launches per RegionE edit of "
+                          "phase 4's small FLUX.2 topology", FUSED_SRC,
+                          SWIGLU_REPLACES, "flux2_small", "swiglu_pack"),
     "kv_quant_int8": ("K10 store_quantized (int8 cache), Qwen's write "
                       "[2,24,8192,128] at row 1392: launches per Qwen grid-64 "
                       "RegionE edit", KV_QUANT_SRC, KV_QUANT_REPLACES,
@@ -3807,7 +3918,7 @@ def main():
     log(f"phase kernels done in {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     checks.update(phase_fused())
-    log(f"phase 3f (the fused block kernels K7-K9) done in "
+    log(f"phase 3f (the fused block kernels K7-K9, K11) done in "
         f"{time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     checks.update(phase_kv_quant())

@@ -234,7 +234,7 @@ def read_counts() -> dict:
     `attention_long`, K2 `attention_rows2`, K2q `attention_rows2_quant`,
     K6 `attention_quant`, K3 `fused_partition`, K7 `adaln`,
     `residual_adaln`, `gated_residual`, K8 `qk_norm_rope`, K9
-    `gelu_pack`, K10 `store_quantized`)."""
+    `gelu_pack`, K10 `store_quantized`, K11 `swiglu_pack`)."""
     from regione_tpu_torch.ops import flash_attention as fa
     from regione_tpu_torch.ops import fused
     from regione_tpu_torch.ops import partition_kernel as pk
@@ -250,7 +250,8 @@ def read_counts() -> dict:
             "gated_residual": fused.gated_residual.launches,
             "qk_norm_rope": fused.qk_norm_rope.launches,
             "gelu_pack": fused.gelu_pack.launches,
-            "store_quantized": quant.store_quantized.launches}
+            "store_quantized": quant.store_quantized.launches,
+            "swiglu_pack": fused.swiglu_pack.launches}
 
 
 def spawn_ranks(code: str, args, n: int, limit: float, label: str,

@@ -2,7 +2,9 @@
 
 Counterpart of `regione_tpu/cli/main.py`, with its flags (every flag,
 default and choice of the JAX parser, held equal by
-tests/test_torch_core_config.py) and its output schema: demo mode
+tests/test_torch_core_config.py; `--backend` adds the port's own
+`flux2-dev`, whose image path is not ported and raises) and its output
+schema: demo mode
 writes `demo_<i>.png` per (image, prompt) item; `--evaluation` walks
 <eval_dir>/<task>/metadata.jsonl and writes generation/<key>.png,
 time_consuming.json (`ave_time_consuming`, `time_consuming_list`) and
@@ -53,7 +55,8 @@ def make_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser("regione-tpu-torch")
     ap.add_argument("--backend", default="step1x-edit",
                     choices=["step1x-edit", "step1x-edit-v1p2", "flux-kontext",
-                             "qwen-image-edit", "qwen-image-edit-plus"])
+                             "qwen-image-edit", "qwen-image-edit-plus",
+                             "flux2-dev"])
     ap.add_argument("--model_path", default=None)
     ap.add_argument("--use_regione", action="store_true")
     ap.add_argument("--warmup_step", type=int, default=6)
@@ -244,7 +247,7 @@ def build_pipeline(args):
     kw = {}
     gs = getattr(args, "guidance_scale", None)
     if gs is not None:
-        kw["guidance_scale" if backend == "flux-kontext"
+        kw["guidance_scale" if backend in ("flux-kontext", "flux2-dev")
            else "true_cfg_scale"] = gs
     pipe = PIPELINES[backend](model, re, **kw)
     pipe.attach_vae(vae)

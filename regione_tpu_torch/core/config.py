@@ -2,7 +2,8 @@
 
 The port's own copy of `regione_tpu/core/config.py` (numpy-free, no JAX):
 the same names, defaults and rules, held equal to the JAX module by
-tests/test_torch_core_config.py.
+tests/test_torch_core_config.py; `DEFAULT_PARAMS` adds the port's own
+backend, FLUX.2 [dev] ("flux2-dev").
 
 Mirrors the knobs and validation rules of the reference implementation:
   - per-backend defaults table      -> reference RegionE/tool/RegionE.py:1-7
@@ -119,6 +120,9 @@ DEFAULT_PARAMS: dict[str, RegionEParams] = {
     "step1x-edit-v1p2": RegionEParams(threshold=0.88, cache_threshold=0.02),
     "qwen-image-edit": RegionEParams(threshold=0.80, cache_threshold=0.03),
     "qwen-image-edit-plus": RegionEParams(threshold=0.80, cache_threshold=0.03),
+    # the port's own: RegionE publishes no FLUX.2 knobs, so FLUX.1
+    # Kontext's (assumed)
+    "flux2-dev": RegionEParams(threshold=0.93, cache_threshold=0.04),
 }
 
 

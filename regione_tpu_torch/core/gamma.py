@@ -1,7 +1,8 @@
 """Fitted per-backend adaptive-velocity-decay (AVD) gamma tables.
 
 The port's own copy of `regione_tpu/core/gamma.py`, held equal to it by
-tests/test_torch_core_config.py.
+tests/test_torch_core_config.py, with one table more for the port's own
+backend, FLUX.2 [dev].
 
 These are offline-fitted constants (27 values = one per timestep transition
 at 28 inference steps) taken from the reference implementation; they are not
@@ -46,6 +47,11 @@ GAMMA_TABLES: dict[str, np.ndarray] = {
          1.0387, 1.0393, 1.0404, 1.0458, 1.0507, 1.0418, 1.0518, 1.0426,
          1.0311, 1.0068, 0.7628], dtype=np.float16),
 }
+
+
+# the port's own: RegionE fits no table for FLUX.2 [dev], so FLUX.1
+# Kontext's (assumed: the same flow-match family, 28 steps)
+GAMMA_TABLES["flux2-dev"] = GAMMA_TABLES["flux-kontext"]
 
 
 def gamma_for(backend: str) -> np.ndarray:

@@ -24,7 +24,9 @@ Sigma math mirrors diffusers' FlowMatchEulerDiscreteScheduler with dynamic
   - mu           : calculate_shift(image_seq_len)  (reference utils.py:18-28),
                    over the backend's own (base, max) sequence lengths and
                    shifts: FLUX.1 / Step1X 256 -> 4096 tokens, 0.5 -> 1.15;
-                   Qwen-Image 256 -> 8192, 0.5 -> 0.9 (`FlowShift`)
+                   Qwen-Image 256 -> 8192, 0.5 -> 0.9 (`FlowShift`);
+                   FLUX.2 [dev] fits mu to the sequence length and the
+                   step count instead (`EmpiricalShift`)
   - terminal     : Qwen-Image stretches the shifted sigmas so that the last
                    one is its `shift_terminal` (0.02); FLUX.1 does not
   - timesteps    : sigma * num_train_timesteps (=1000); terminal sigma 0.
@@ -108,6 +110,32 @@ class FlowShift:
                             shift_terminal=self.shift_terminal)
 
 
+@dataclasses.dataclass(frozen=True)
+class EmpiricalShift:
+    """FLUX.2 [dev]'s shift (diffusers' `compute_empirical_mu`,
+    pipelines/flux2/pipeline_flux2.py): mu fitted to the noise token count
+    L and the step count N by two lines, m200 = a2 L + b2 (200 steps) and
+    m10 = a1 L + b1 (10 steps); past `long_seq_len` tokens mu = m200,
+    else the line through them at N, m200 + (N - 200) (m200 - m10) / 190.
+    The exponential time shift, no terminal stretch."""
+
+    a1: float = 8.73809524e-05
+    b1: float = 1.89833333
+    a2: float = 0.00016927
+    b2: float = 0.45666666
+    long_seq_len: int = 4300
+
+    def mu(self, num_steps: int, image_seq_len: int) -> float:
+        m200 = self.a2 * image_seq_len + self.b2
+        if image_seq_len > self.long_seq_len:
+            return m200
+        m10 = self.a1 * image_seq_len + self.b1
+        return m200 + (num_steps - 200.0) * (m200 - m10) / 190.0
+
+    def sigmas(self, num_steps: int, image_seq_len: int) -> np.ndarray:
+        return build_sigmas(num_steps, mu=self.mu(num_steps, image_seq_len))
+
+
 # FLUX.1 (Kontext dev) and Step1X-Edit
 FLUX_SHIFT = FlowShift()
 # Qwen-Image / Qwen-Image-Edit (huggingface.co/Qwen/Qwen-Image-Edit,
@@ -115,6 +143,8 @@ FLUX_SHIFT = FlowShift()
 QWEN_IMAGE_SHIFT = FlowShift(base_image_seq_len=256, max_image_seq_len=8192,
                              base_shift=0.5, max_shift=0.9,
                              shift_terminal=0.02)
+# FLUX.2 [dev] (huggingface.co/black-forest-labs/FLUX.2-dev)
+FLUX2_SHIFT = EmpiricalShift()
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,9 @@
 //   K8 `fused_qk_norm_rope_kernel`: qk-RMSNorm, interleaved RoPE and the
 //      head-major packing of q / k (v: the packing alone) at a row offset;
 //   K9 `fused_gelu_pack_kernel`: [attn ‖ gelu_tanh(mlp_h)] (or the GELU
-//      alone).
+//      alone);
+//   K11 `fused_swiglu_pack_kernel`: [attn ‖ silu(a) * b] of h = [a ‖ b]
+//      (or the gate alone): FLUX.2's SwiGLU MLP.
 //
 // None of them replaces a Pallas kernel.  The JAX package jits each
 // sampler phase (regione_tpu/core/sampler.py:140-151), and inside those
@@ -24,7 +26,8 @@
 // so kernel and plain version differ only by the order of fp32 sums and
 // by the device's rsqrt / tanh.  K7: gate * y, the new x, the LN output,
 // 1 + scale, the product and the sum.  K8: the RMSNorm output, then the
-// rotated value.  K9: the GELU output once.
+// rotated value.  K9: the GELU output once.  K11: silu(a), then the
+// product (F.silu and the bf16 multiply, each rounding once).
 //
 // What bounds them on an H100: bytes.  Each does a few flops per element
 // (K8 about 10 per value), far below the ~20 flops a byte at which the
@@ -38,12 +41,13 @@
 //   * K7: one warp per row, the row held in registers as packed bf16 (the
 //     values the plain version rounds to, so nothing is lost): each lane
 //     owns kChunks 16-byte chunks (8 values), so h = 1536 is 6 chunks a
-//     lane and 3072 is 12.  The residual is added as the chunks arrive; the
-//     mean and the variance are two passes over the registers (as
-//     layers.layernorm and jnp.var compute them), each a warp-shuffle
-//     reduction, then the modulation streams out.  The modulation vectors
-//     (shift, scale, gate: [B, 1, h] views of `_modulation`'s chunk, any
-//     batch stride) are read per row and stay in L2.
+//     lane, 3072 is 12 and FLUX.2's 6144 is 24.  The residual is added as
+//     the chunks arrive; the mean and the variance are two passes over the
+//     registers (as layers.layernorm and jnp.var compute them), each a
+//     warp-shuffle reduction, then the modulation streams out.  The
+//     modulation vectors (shift, scale, gate: [B, 1, h] views of
+//     `_modulation`'s chunk, any batch stride) are read per row and stay
+//     in L2.
 //   * K8: 16 lanes per (row, head): a head's 128 values are 16 loads of
 //     16 bytes, the RMSNorm a 16-lane xor-shuffle sum, and each lane's 8
 //     values are 4 whole RoPE pairs, so the rotation needs no exchange.
@@ -57,6 +61,13 @@
 //     `inner` is copied from the attention output, one right of it is the
 //     GELU of the strided MLP half.  No stage in shared memory: every
 //     chunk is read once and written once.
+//   * K11: K9's layout, the GELU chunk replaced by the gate's: a thread
+//     right of `inner` reads chunk j of a and chunk j of b (mlp columns
+//     further along the same strided row), so a warp's loads of each
+//     half are coalesced, every input byte is read once and the output
+//     written once.  At FLUX.2's single block (8704 rows, inner 6144, mlp
+//     18432) that is 107 + 642 MB read and 428 MB written: 351 us at
+//     3.35 TB/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,11 +79,12 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kEps = 1e-6f;
 constexpr int kAdalnWarps = 4;            // rows a CTA
-constexpr int kMaxChunks = 16;            // h <= 16 * 256
+constexpr int kMaxChunks = 24;            // h <= 24 * 256
 constexpr int kHeadDim = 128;
 constexpr int kHeadLanes = kHeadDim / 8;  // lanes a (row, head)
 constexpr int kRopeThreads = 256;
 constexpr int kGeluThreads = 256;
+constexpr int kSwigluThreads = 256;
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -329,6 +341,49 @@ fused_gelu_pack_kernel(const GeluArgs a) {
   store16(o, pack(f));
 }
 
+// ---------------------------------------------------------------------------
+// K11: [attn ‖ silu(a) * b]
+// ---------------------------------------------------------------------------
+
+struct SwigluArgs {
+  const bf16* attn;    // [B, S, inner] or null (inner 0: the gate alone)
+  const bf16* h;       // [B, S, 2 * mlp] = [a ‖ b], any batch / row stride
+  bf16* out;           // dense [B, S, inner + mlp]
+  long long attn_sb, attn_ss, h_sb, h_ss;
+  int batch, rows, inner, mlp;
+};
+
+// PyTorch's silu (x / (1 + exp(-x)) in fp32) rounded to bf16, times b:
+// F.silu(a) * b on bf16 tensors, before the product's own rounding
+__device__ __forceinline__ float swiglu(float a, float b) {
+  const float s = round_bf16(__fdiv_rn(a, __fadd_rn(1.0f, expf(-a))));
+  return __fmul_rn(s, b);
+}
+
+__global__ void __launch_bounds__(kSwigluThreads)
+fused_swiglu_pack_kernel(const SwigluArgs a) {
+  const int width = a.inner + a.mlp;
+  const int chunks = width / 8;
+  const long long t = (long long)blockIdx.x * kSwigluThreads + threadIdx.x;
+  if (t >= (long long)a.batch * a.rows * chunks) return;
+  const long long r = t / chunks;
+  const int c = 8 * (int)(t % chunks);
+  const long long b = r / a.rows;
+  const long long s = r % a.rows;
+  bf16* o = a.out + r * width + c;
+  if (c < a.inner) {
+    store16(o, load16(a.attn + b * a.attn_sb + s * a.attn_ss + c));
+    return;
+  }
+  const bf16* hr = a.h + b * a.h_sb + s * a.h_ss + (c - a.inner);
+  float fa[8], fb[8];
+  unpack(load16(hr), fa);
+  unpack(load16(hr + a.mlp), fb);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) fa[i] = swiglu(fa[i], fb[i]);
+  store16(o, pack(fa));
+}
+
 }  // namespace
 
 // strides: x_sb, x_ss, y_sb, y_ss, gate_sb, shift_sb, scale_sb (elements).
@@ -365,11 +420,13 @@ extern "C" int regione_adaln_fwd(const void* x, const void* y,
   a.rows = rows;
   a.h = h;
   const auto s = static_cast<cudaStream_t>(stream);
-  // 16-byte chunks a lane: the presets' widths (h 1536: 6, h 3072: 12),
-  // and any other h up to 4096 in the widest instantiation
+  // 16-byte chunks a lane: the presets' widths (h 1536: 6, h 3072: 12,
+  // FLUX.2's h 6144: 24), and any other h up to 6144 in the next wider
+  // instantiation
   const int chunks = (h / 8 + 31) / 32;
   if (chunks <= 6) launch_adaln<6>(a, s);
   else if (chunks <= 12) launch_adaln<12>(a, s);
+  else if (chunks <= 16) launch_adaln<16>(a, s);
   else launch_adaln<kMaxChunks>(a, s);
   return static_cast<int>(cudaGetLastError());
 }
@@ -433,5 +490,34 @@ extern "C" int regione_gelu_pack_fwd(const void* attn, const void* h,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   fused_gelu_pack_kernel<<<(unsigned)blocks, kGeluThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// strides: attn_sb, attn_ss, h_sb, h_ss (elements).  attn null: inner 0.
+// h holds 2 * mlp columns: a, then b.
+extern "C" int regione_swiglu_pack_fwd(const void* attn, const void* h,
+                                       void* out, const long long* strides,
+                                       int batch, int rows, int inner,
+                                       int mlp, void* stream) {
+  if (batch < 1 || rows < 1 || inner < 0 || inner % 8 || mlp < 8 ||
+      mlp % 8 || (attn == nullptr) != (inner == 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  SwigluArgs a;
+  a.attn = static_cast<const bf16*>(attn);
+  a.h = static_cast<const bf16*>(h);
+  a.out = static_cast<bf16*>(out);
+  a.attn_sb = strides[0];
+  a.attn_ss = strides[1];
+  a.h_sb = strides[2];
+  a.h_ss = strides[3];
+  a.batch = batch;
+  a.rows = rows;
+  a.inner = inner;
+  a.mlp = mlp;
+  const long long total = (long long)batch * rows * ((inner + mlp) / 8);
+  const long long blocks = (total + kSwigluThreads - 1) / kSwigluThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  fused_swiglu_pack_kernel<<<(unsigned)blocks, kSwigluThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -54,11 +54,13 @@ from regione_tpu_torch.ops.quant import unpack_int4
 # parameter holders (names mirror the JAX param pytree)
 # ---------------------------------------------------------------------------
 
-def make_linear(d_in: int, d_out: int, device, dtype) -> nn.Linear:
+def make_linear(d_in: int, d_out: int, device, dtype,
+                bias: bool = True) -> nn.Linear:
     """An nn.Linear whose storage is left uninitialised: weights come from
-    `weights.from_jax` or `weights.init_params`."""
-    return nn.utils.skip_init(nn.Linear, d_in, d_out, device=device,
-                              dtype=dtype)
+    `weights.from_jax` or `weights.init_params`.  `bias` False: no bias
+    (FLUX.2's linears)."""
+    return nn.utils.skip_init(nn.Linear, d_in, d_out, bias=bias,
+                              device=device, dtype=dtype)
 
 
 class Scale(nn.Module):
@@ -83,17 +85,21 @@ class AffineNorm(nn.Module):
 
 class MLP(nn.Module):
     """Two linears ({"in", "out"}); the caller applies the activation.
-    JAX's "in" key is `in_` here."""
+    JAX's "in" key is `in_` here.  `gated`: `in_` gives both halves of a
+    gated activation, 2 x d_hidden wide (SwiGLU)."""
 
-    def __init__(self, d_in: int, d_hidden: int, d_out: int, device, dtype):
+    def __init__(self, d_in: int, d_hidden: int, d_out: int, device, dtype,
+                 bias: bool = True, gated: bool = False):
         super().__init__()
-        self.in_ = make_linear(d_in, d_hidden, device, dtype)
-        self.out = make_linear(d_hidden, d_out, device, dtype)
+        self.in_ = make_linear(d_in, (2 if gated else 1) * d_hidden, device,
+                               dtype, bias)
+        self.out = make_linear(d_hidden, d_out, device, dtype, bias)
 
 
-def mlp_embed_module(d_in: int, d_hidden: int, device, dtype) -> MLP:
+def mlp_embed_module(d_in: int, d_hidden: int, device, dtype,
+                     bias: bool = True) -> MLP:
     """Time/vector embed MLP: d_in -> d_hidden -> d_hidden."""
-    return MLP(d_in, d_hidden, d_hidden, device, dtype)
+    return MLP(d_in, d_hidden, d_hidden, device, dtype, bias)
 
 
 # ---------------------------------------------------------------------------

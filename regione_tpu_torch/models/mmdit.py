@@ -4,8 +4,14 @@ Counterpart of `regione_tpu/models/mmdit.py` for the Step1X-Edit / FLUX
 topology (double-stream blocks, then single-stream txt-concat blocks) and
 the Qwen-Image-Edit topology (joint double-stream blocks only,
 depth_single = 0, and an RMSNorm of the raw text features, `txt_norm`):
-AdaLN-zero modulation, qk-RMSNorm and 3-axis RoPE; FLUX.1 Kontext adds its
-distilled guidance scale to the timestep embedding (`guidance_embed`).
+AdaLN-zero modulation, qk-RMSNorm and RoPE over any number of axes; FLUX.1
+Kontext adds its distilled guidance scale to the timestep embedding
+(`guidance_embed`).  FLUX.2 [dev] keeps the FLUX topology and changes three
+things together, under one field of `MMDiTConfig` (`flux2_block`): a SwiGLU
+MLP, its input projection 2 x mlp_hidden wide, gated by kernel K11;
+modulation computed once a forward by three linears shared by every block
+of a kind (`double_mod_img`, `double_mod_txt`, `single_mod`, in the
+`model.modulation` span); and no bias in any linear.
 Three cache modes:
 
   mode="dense" : plain attention, no cache traffic;
@@ -22,9 +28,10 @@ attention-ready K (qk-norm and RoPE applied) and raw V, head-major over the
 image rows ([noise ‖ condition]) only: in the model dtype, or quantized
 (int8, int4), which RAGS steps read through kernel K2q.
 The blocks' elementwise chains (AdaLN, the gated residuals, qk-RMSNorm +
-RoPE with the head-major packing, GELU) run through `ops.fused`, kernels
-K7-K9 on the card; the double block's q / k / v are written straight
-into one buffer over [txt ‖ img] rows each, with no concatenation.
+RoPE with the head-major packing, GELU or the SwiGLU gate) run through
+`ops.fused`, kernels K7-K9 and K11 on the card; the double block's q / k /
+v are written straight into one buffer over [txt ‖ img] rows each, with no
+concatenation.
 The depth runs as a Python loop over `nn.ModuleList`s; linear1 of the single
 blocks is one matmul, quantized or not (the JAX package's deferred-MLP split
 was an XLA rematerialisation fix with the same math, and its `_slice_out`
@@ -50,7 +57,8 @@ from torch import nn
 from regione_tpu_torch.models import kv_cache
 from regione_tpu_torch.models.connector import Connector, ConnectorConfig
 from regione_tpu_torch.ops.fused import (adaln, gated_residual, gelu_pack,
-                                         qk_norm_rope, residual_adaln)
+                                         qk_norm_rope, residual_adaln,
+                                         swiglu_pack)
 from regione_tpu_torch.utils import telemetry
 from regione_tpu_torch.models.layers import (
     MLP,
@@ -101,6 +109,10 @@ class MMDiTConfig:
                                    # their input rows and run an int8
                                    # product (`layers.act_int8`); no-op
                                    # without int8 weights (ops.quant)
+    flux2_block: bool = False      # FLUX.2's block: a SwiGLU MLP (silu(a)
+                                   # * b of the input projection's [a ‖ b]),
+                                   # the blocks' modulation from three
+                                   # linears a forward, no bias in any linear
     dtype: Any = torch.bfloat16
 
     @property
@@ -120,17 +132,23 @@ def _modulation(lin: nn.Linear, temb_act, n: int):
     return lin(temb_act)[:, None, :].chunk(n, dim=-1)
 
 
+def _mlp_act(swiglu: bool, attn, h):
+    """[attn ‖ act(h)] (attn None: act(h) alone): the tanh GELU (K9), or
+    under SwiGLU silu(a) * b of h = [a ‖ b] (K11)."""
+    return swiglu_pack(attn, h) if swiglu else gelu_pack(attn, h)
+
+
 class Attention(nn.Module):
     """One stream's q/k/v/out projections and qk-RMSNorm scales."""
 
     def __init__(self, d_model: int, cfg: MMDiTConfig, device):
         super().__init__()
-        dt, inner = cfg.dtype, cfg.inner
+        dt, inner, b = cfg.dtype, cfg.inner, not cfg.flux2_block
         self.heads, self.head_dim = cfg.heads, cfg.head_dim
-        self.q = make_linear(d_model, inner, device, dt)
-        self.k = make_linear(d_model, inner, device, dt)
-        self.v = make_linear(d_model, inner, device, dt)
-        self.out = make_linear(inner, d_model, device, dt)
+        self.q = make_linear(d_model, inner, device, dt, b)
+        self.k = make_linear(d_model, inner, device, dt, b)
+        self.v = make_linear(d_model, inner, device, dt, b)
+        self.out = make_linear(inner, d_model, device, dt, b)
         self.norm_q = Scale(cfg.head_dim, device, dt)
         self.norm_k = Scale(cfg.head_dim, device, dt)
 
@@ -148,25 +166,31 @@ class Attention(nn.Module):
 
 class DoubleBlock(nn.Module):
     """Double-stream block: separate img/txt projections, joint attention
-    with the txt rows first."""
+    with the txt rows first.  Under `flux2_block` it holds no modulation
+    linear: the forward hands it the shared chunks (`mods`)."""
 
     def __init__(self, cfg: MMDiTConfig, device):
         super().__init__()
-        h, dt = cfg.hidden, cfg.dtype
-        self.img_mod = make_linear(h, 6 * h, device, dt)
-        self.txt_mod = make_linear(h, 6 * h, device, dt)
+        h, dt, b = cfg.hidden, cfg.dtype, not cfg.flux2_block
+        if not cfg.flux2_block:
+            self.img_mod = make_linear(h, 6 * h, device, dt, b)
+            self.txt_mod = make_linear(h, 6 * h, device, dt, b)
         self.img_attn = Attention(h, cfg, device)
         self.txt_attn = Attention(h, cfg, device)
-        self.img_mlp = MLP(h, cfg.mlp_hidden, h, device, dt)
-        self.txt_mlp = MLP(h, cfg.mlp_hidden, h, device, dt)
+        self.swiglu = cfg.flux2_block
+        self.img_mlp = MLP(h, cfg.mlp_hidden, h, device, dt, b, self.swiglu)
+        self.txt_mlp = MLP(h, cfg.mlp_hidden, h, device, dt, b, self.swiglu)
 
     def forward(self, img, txt, temb_act, rope_img, rope_txt, mode,
-                cache_k=None, cache_v=None, bias=None):
-        """Returns (img, txt, (k_img, v_img) in write mode else None)."""
-        (i_shift1, i_scale1, i_gate1,
-         i_shift2, i_scale2, i_gate2) = _modulation(self.img_mod, temb_act, 6)
-        (t_shift1, t_scale1, t_gate1,
-         t_shift2, t_scale2, t_gate2) = _modulation(self.txt_mod, temb_act, 6)
+                cache_k=None, cache_v=None, bias=None, mods=None):
+        """Returns (img, txt, (k_img, v_img) in write mode else None).
+        `mods`: the image and the text stream's six chunks, computed once
+        a forward (`flux2_block`); None: from this block's own linears."""
+        if mods is None:
+            mods = (_modulation(self.img_mod, temb_act, 6),
+                    _modulation(self.txt_mod, temb_act, 6))
+        ((i_shift1, i_scale1, i_gate1, i_shift2, i_scale2, i_gate2),
+         (t_shift1, t_scale1, t_gate1, t_shift2, t_scale2, t_gate2)) = mods
 
         img_n = adaln(img, i_shift1, i_scale1)
         txt_n = adaln(txt, t_shift1, t_scale1)
@@ -194,37 +218,46 @@ class DoubleBlock(nn.Module):
                                      self.txt_attn.out(attn_txt), t_shift2,
                                      t_scale2)
         img = gated_residual(img, i_gate2, self.img_mlp.out(
-            gelu_pack(None, self.img_mlp.in_(img_n2))))
+            _mlp_act(self.swiglu, None, self.img_mlp.in_(img_n2))))
         txt = gated_residual(txt, t_gate2, self.txt_mlp.out(
-            gelu_pack(None, self.txt_mlp.in_(txt_n2))))
+            _mlp_act(self.swiglu, None, self.txt_mlp.in_(txt_n2))))
         return img, txt, new_kv
 
 
 class SingleBlock(nn.Module):
     """Flux-style single-stream block over [txt ‖ img]: one fused qkv+MLP
-    projection, parallel attention and MLP, one output projection."""
+    projection, parallel attention and MLP, one output projection.  Under
+    `flux2_block` it holds no modulation linear (`mods`, as in
+    `DoubleBlock`); under SwiGLU linear1's MLP part is both halves."""
 
     def __init__(self, cfg: MMDiTConfig, device):
         super().__init__()
-        h, dt = cfg.hidden, cfg.dtype
+        h, dt, b = cfg.hidden, cfg.dtype, not cfg.flux2_block
         self.heads, self.inner, self.mlp_hidden = (cfg.heads, cfg.inner,
                                                    cfg.mlp_hidden)
-        self.mod = make_linear(h, 3 * h, device, dt)
-        self.linear1 = make_linear(h, 3 * cfg.inner + cfg.mlp_hidden,
-                                   device, dt)
-        self.linear2 = make_linear(cfg.inner + cfg.mlp_hidden, h, device, dt)
+        self.swiglu = cfg.flux2_block
+        if not cfg.flux2_block:
+            self.mod = make_linear(h, 3 * h, device, dt, b)
+        self.linear1 = make_linear(
+            h, 3 * cfg.inner + (2 if self.swiglu else 1) * cfg.mlp_hidden,
+            device, dt, b)
+        self.linear2 = make_linear(cfg.inner + cfg.mlp_hidden, h, device, dt,
+                                   b)
         self.norm_q = Scale(cfg.head_dim, device, dt)
         self.norm_k = Scale(cfg.head_dim, device, dt)
 
     def forward(self, x, temb_act, rope, mode, cache_k=None, cache_v=None,
-                bias=None, t_txt: int = 0):
+                bias=None, t_txt: int = 0, mods=None):
         """Returns (x, (k_img, v_img) in write mode else None); the image
-        rows of the stream start at `t_txt`."""
-        shift, scale, gate = _modulation(self.mod, temb_act, 3)
+        rows of the stream start at `t_txt`.  `mods`: the shared (shift,
+        scale, gate), or None for this block's own."""
+        shift, scale, gate = mods if mods is not None else \
+            _modulation(self.mod, temb_act, 3)
         x_n = adaln(x, shift, scale)
         inner = self.inner
-        q, k, v, mlp_h = self.linear1(x_n).split(
-            [inner, inner, inner, self.mlp_hidden], dim=-1)
+        h = self.linear1(x_n)
+        q, k, v, mlp_h = h.split([inner, inner, inner,
+                                  h.shape[-1] - 3 * inner], dim=-1)
         q = qk_norm_rope(q, self.heads, self.norm_q.scale, rope)
         k = qk_norm_rope(k, self.heads, self.norm_k.scale, rope)
         v = split_heads(v, self.heads)      # attention reads the view
@@ -236,7 +269,7 @@ class SingleBlock(nn.Module):
             if mode == MODE_WRITE:
                 new_kv = (k[:, :, t_txt:], v[:, :, t_txt:])
             attn = sdpa(q, k, v, bias=bias)
-        out = self.linear2(gelu_pack(attn, mlp_h))
+        out = self.linear2(_mlp_act(self.swiglu, attn, mlp_h))
         return gated_residual(x, gate, out), new_kv
 
 
@@ -279,19 +312,24 @@ class MMDiT(nn.Module):
         self.cfg = cfg
         self.tp = None      # layers.TPGroup of a sharded model
         self.mesh = None
-        h, dt = cfg.hidden, cfg.dtype
-        self.x_embedder = make_linear(cfg.in_channels, h, device, dt)
-        self.time_in = mlp_embed_module(cfg.time_embed_dim, h, device, dt)
-        self.txt_in = make_linear(cfg.txt_in_dim, h, device, dt)
-        self.final_mod = make_linear(h, 2 * h, device, dt)
-        self.final_proj = make_linear(h, cfg.out_channels, device, dt)
+        h, dt, b = cfg.hidden, cfg.dtype, not cfg.flux2_block
+        self.x_embedder = make_linear(cfg.in_channels, h, device, dt, b)
+        self.time_in = mlp_embed_module(cfg.time_embed_dim, h, device, dt, b)
+        self.txt_in = make_linear(cfg.txt_in_dim, h, device, dt, b)
+        self.final_mod = make_linear(h, 2 * h, device, dt, b)
+        self.final_proj = make_linear(h, cfg.out_channels, device, dt, b)
         self.double_blocks = nn.ModuleList(DoubleBlock(cfg, device)
                                     for _ in range(cfg.depth_double))
+        if cfg.flux2_block:
+            self.double_mod_img = make_linear(h, 6 * h, device, dt, b)
+            self.double_mod_txt = make_linear(h, 6 * h, device, dt, b)
+            self.single_mod = make_linear(h, 3 * h, device, dt, b)
         if cfg.pooled_dim:
-            self.vector_in = mlp_embed_module(cfg.pooled_dim, h, device, dt)
+            self.vector_in = mlp_embed_module(cfg.pooled_dim, h, device, dt,
+                                              b)
         if cfg.guidance_embed:
             self.guidance_in = mlp_embed_module(cfg.time_embed_dim, h,
-                                                device, dt)
+                                                device, dt, b)
         if cfg.connector is not None:
             self.connector = Connector(cfg.connector, device)
         if cfg.txt_norm:
@@ -322,7 +360,8 @@ class MMDiT(nn.Module):
 
     def _forward(self, img, txt, t, rope_img, rope_txt, pooled, guidance, *,
                  mode, cache, sel_img_ids, txt_bias):
-        """`forward`, in host-only `utils.telemetry` spans: `model.embed`,
+        """`forward`, in host-only `utils.telemetry` spans: `model.embed`
+        (holding `model.modulation` under `flux2_block`),
         `model.double_block` / `model.single_block` (attr `index`) and
         `model.final`; in write mode each block's span holds two
         `model.cache_write` spans (K, V), which time the device."""
@@ -333,6 +372,7 @@ class MMDiT(nn.Module):
         with telemetry.span("model.embed"):
             x, txt_h, temb_act = self._embed(img, txt, t, pooled, guidance,
                                              txt_bias)
+            double_kw, single_kw = self._shared_mods(temb_act)
         t_txt = txt_h.shape[1]
 
         rags = mode == MODE_RAGS
@@ -345,7 +385,7 @@ class MMDiT(nn.Module):
                 ck = kv_cache.layer_kv(cache, "dk", i) if rags else None
                 cv = kv_cache.layer_kv(cache, "dv", i) if rags else None
                 x, txt_h, kv = blk(x, txt_h, temb_act, rope_img, rope_txt,
-                                   mode, ck, cv, bias)
+                                   mode, ck, cv, bias, **double_kw)
                 if kv is not None:
                     kv_cache.store_kv(cfg, cache, "dk", i, kv[0])
                     kv_cache.store_kv(cfg, cache, "dv", i, kv[1])
@@ -358,7 +398,7 @@ class MMDiT(nn.Module):
                     ck = kv_cache.layer_kv(cache, "sk", i) if rags else None
                     cv = kv_cache.layer_kv(cache, "sv", i) if rags else None
                     stream, kv = blk(stream, temb_act, rope_stream, mode, ck,
-                                     cv, bias, t_txt=t_txt)
+                                     cv, bias, t_txt=t_txt, **single_kw)
                     if kv is not None:
                         kv_cache.store_kv(cfg, cache, "sk", i, kv[0])
                         kv_cache.store_kv(cfg, cache, "sv", i, kv[1])
@@ -367,6 +407,18 @@ class MMDiT(nn.Module):
         with telemetry.span("model.final"):
             shift, scale = _modulation(self.final_mod, temb_act, 2)
             return self.final_proj(adaln(x, shift, scale)), cache
+
+    def _shared_mods(self, temb_act):
+        """The blocks' keyword arguments: under `flux2_block` the chunks of
+        the three shared modulation linears, computed here once a forward
+        (the `model.modulation` span), as `mods`; else none."""
+        if not self.cfg.flux2_block:
+            return {}, {}
+        with telemetry.span("model.modulation"):
+            double = (_modulation(self.double_mod_img, temb_act, 6),
+                      _modulation(self.double_mod_txt, temb_act, 6))
+            single = _modulation(self.single_mod, temb_act, 3)
+        return {"mods": double}, {"mods": single}
 
     def _embed(self, img, txt, t, pooled, guidance, txt_bias):
         """The image, time, guidance and text embeds and the connector:

@@ -1,8 +1,9 @@
 """Backbone presets of the port, under the JAX package's names and numbers
 (`regione_tpu/models/presets.py`): the full-width Step1X-Edit (v1.1 and
 v1.2), FLUX.1 Kontext and Qwen-Image-Edit (+ Plus), their scaled
-single-device variants, and the tiny CPU test configs.  The cache format
-is not part of a preset: set it with
+single-device variants, and the tiny CPU test configs; and the port's own
+FLUX.2 [dev] ("flux2-dev", "tiny-flux2"), which the JAX package lacks.
+The cache format is not part of a preset: set it with
 `models.kv_cache.with_cache_format(cfg, "int8")`."""
 
 from __future__ import annotations
@@ -46,6 +47,16 @@ PRESETS: dict[str, MMDiTConfig] = {
         hidden=3072, heads=24, head_dim=128, depth_double=60, depth_single=0,
         txt_in_dim=3584, pooled_dim=0, axes_dims=(16, 56, 56), txt_norm=True,
     ),
+    # FLUX.2 [dev]: the FLUX topology at hidden 6144 (48 heads), 8 double
+    # and 48 single blocks, a SwiGLU MLP of ratio 3, modulation shared by
+    # the blocks of a kind, no biases, Mistral-Small-3.1 features (3 layers
+    # of 5120), 4-axis RoPE at theta 2000 (32.2 B parameters)
+    "flux2-dev": MMDiTConfig(
+        in_channels=128, out_channels=128, hidden=6144, heads=48,
+        head_dim=128, mlp_ratio=3.0, depth_double=8, depth_single=48,
+        txt_in_dim=15360, pooled_dim=0, guidance_embed=True,
+        axes_dims=(32, 32, 32, 32), rope_theta=2000.0, flux2_block=True,
+    ),
     # scaled-down Step1X topology (1.26 B parameters, no connector)
     "step1x-edit:dev": MMDiTConfig(
         hidden=1536, heads=12, head_dim=128, depth_double=8, depth_single=16,
@@ -86,6 +97,13 @@ PRESETS: dict[str, MMDiTConfig] = {
         txt_in_dim=16, pooled_dim=0, axes_dims=(4, 6, 6), time_embed_dim=32,
         mlp_ratio=2.0, in_channels=8, out_channels=8, dtype=torch.float32,
         txt_norm=True,
+    ),
+    "tiny-flux2": MMDiTConfig(
+        hidden=32, heads=2, head_dim=16, depth_double=2, depth_single=2,
+        txt_in_dim=24, pooled_dim=0, guidance_embed=True,
+        axes_dims=(4, 4, 4, 4), rope_theta=2000.0, time_embed_dim=32,
+        mlp_ratio=3.0, in_channels=8, out_channels=8, dtype=torch.float32,
+        flux2_block=True,
     ),
     # sharding tests: head count (8) and all feature dims divisible by
     # tp=4, so a (dp=2, tp=4) mesh splits every rule of parallel.sharding

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "regione_adaln_fwd": [_P] * 8 + [_I] * 3 + [_P],
     "regione_qk_norm_rope_fwd": [_P] * 6 + [_I] * 3 + [_P],
     "regione_gelu_pack_fwd": [_P] * 4 + [_I] * 4 + [_P],
+    "regione_swiglu_pack_fwd": [_P] * 4 + [_I] * 4 + [_P],
     "regione_kv_quant_store_fwd": [_P] * 4 + [_I] * 4 + [_P],
 }
 

@@ -1,5 +1,6 @@
 """The MMDiT blocks' elementwise chains: AdaLN with the gated residual (K7),
-qk-RMSNorm + RoPE + head-major packing (K8), GELU + concatenation (K9).
+qk-RMSNorm + RoPE + head-major packing (K8), GELU + concatenation (K9),
+the SwiGLU gate + concatenation (K11).
 
 Every wrapper runs one hand-written CUDA kernel of `csrc/fused_block.cu`.
 None replaces a Pallas kernel: the JAX package jits each sampler phase
@@ -13,7 +14,9 @@ pass over the rows; eager PyTorch would run each op as its own launch.
   * `qk_norm_rope(x, heads, scale, rope, out, row0)` (K8): RMSNorm, RoPE,
     and the head-major layout [B, H, S, dh], written into `out` at row
     `row0` (v: no scale, no rope, the packing alone);
-  * `gelu_pack(attn, h)` (K9): [attn ‖ gelu_tanh(h)], or gelu_tanh(h).
+  * `gelu_pack(attn, h)` (K9): [attn ‖ gelu_tanh(h)], or gelu_tanh(h);
+  * `swiglu_pack(attn, h)` (K11): [attn ‖ silu(a) * b] of h = [a ‖ b], or
+    silu(a) * b (FLUX.2's MLP).
 
 The residual modes write the new x to a new tensor: the port never updates
 a block's input in place.
@@ -29,8 +32,8 @@ fp32 sums (about one bf16 ulp at most).
 
 Launch counters (`ops.launch.launch`): `adaln.launches`,
 `residual_adaln.launches`, `gated_residual.launches` (K7),
-`qk_norm_rope.launches` (K8), `gelu_pack.launches` (K9), each with
-`.host_ns` and `.launch_ns`.
+`qk_norm_rope.launches` (K8), `gelu_pack.launches` (K9),
+`swiglu_pack.launches` (K11), each with `.host_ns` and `.launch_ns`.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from regione_tpu_torch.ops import launch
 from regione_tpu_torch.ops.launch import HEAD_DIM
 from regione_tpu_torch.utils import telemetry
 
-ADALN_MAX_H = 4096      # K7 holds a row in registers: 16 chunks a lane
+ADALN_MAX_H = 6144      # K7 holds a row in registers: 24 chunks a lane
 
 
 # ---------------------------------------------------------------------------
@@ -83,6 +86,14 @@ def gelu_pack_reference(attn, h):
     """Plain K9: [attn ‖ gelu_tanh(h)] on the last dim (attn None: the
     GELU alone)."""
     g = gelu_tanh(h)
+    return g if attn is None else torch.cat([attn, g], dim=-1)
+
+
+def swiglu_pack_reference(attn, h):
+    """Plain K11: [attn ‖ silu(a) * b] on the last dim, h = [a ‖ b] (attn
+    None: the gate alone); in bf16 silu(a) is rounded, then the product."""
+    a, b = h.chunk(2, dim=-1)
+    g = F.silu(a) * b
     return g if attn is None else torch.cat([attn, g], dim=-1)
 
 
@@ -245,10 +256,44 @@ def gelu_pack(attn, h):
     return out
 
 
+# ---------------------------------------------------------------------------
+# K11: the SwiGLU gate + concatenation
+# ---------------------------------------------------------------------------
+
+def swiglu_pack(attn, h):
+    """K11: [attn ‖ silu(a) * b] on the last dim, h = [a ‖ b] [B, S, 2 *
+    mlp] (any row stride: the MLP part of FLUX.2's `linear1`, or a double
+    block's MLP input projection), attn [B, S, inner]; attn None: silu(a)
+    * b alone.  A new dense tensor.  CPU: plain version.  CUDA: the
+    kernel, or raises."""
+    t0 = telemetry.clock()
+    if not launch.on_card(h, "swiglu_pack"):
+        return swiglu_pack_reference(attn, h)
+    dev = h.device
+    h_strides = launch.check("h", h, dev, (None, None, None))
+    b, s, two_mlp = h.shape
+    if two_mlp % 16:
+        raise ValueError(f"swiglu_pack: h's {two_mlp} columns are not two "
+                         f"halves of a multiple of 8")
+    mlp = two_mlp // 2
+    inner, strides = 0, [0, 0]
+    if attn is not None:
+        strides = launch.check("attn", attn, dev, (b, s, None))
+        inner = attn.shape[2]
+    out = torch.empty((b, s, inner + mlp), dtype=h.dtype, device=dev)
+    if b * s == 0:
+        return out
+    strides = (ctypes.c_longlong * 4)(*strides, *h_strides)
+    launch.launch(swiglu_pack, t0, "regione_swiglu_pack_fwd", dev,
+                  launch.ptr(attn), h.data_ptr(), out.data_ptr(), strides, b,
+                  s, inner, mlp)
+    return out
+
+
 def reset_launches():
     """Set every fused-kernel launch counter, and its host times, to 0."""
     telemetry.reset_counters(__name__)
 
 
 telemetry.register_counters(adaln, residual_adaln, gated_residual,
-                            qk_norm_rope, gelu_pack)
+                            qk_norm_rope, gelu_pack, swiglu_pack)

@@ -260,6 +260,10 @@ def shard_plan(model, rank: int, size: int) -> dict[str, LinearShard]:
     if size == 1:
         return {}
     cfg = model.cfg
+    if cfg.flux2_block:
+        # the JAX rules know no SwiGLU halves and no shared modulation
+        raise NotImplementedError("tensor parallelism of a FLUX.2 backbone "
+                                  "(SwiGLU, shared modulation)")
     plans = {}
     for mname, lin in model.named_modules():
         if not isinstance(lin, (nn.Linear, Int8Linear, Int4Linear)):

@@ -170,7 +170,8 @@ def init_params(cfg: MMDiTConfig, generator: torch.Generator,
         if isinstance(mod, nn.Linear):
             lim = 1.0 / math.sqrt(mod.in_features)
             mod.weight.uniform_(-lim, lim, generator=generator)
-            mod.bias.zero_()
+            if mod.bias is not None:
+                mod.bias.zero_()
         elif isinstance(mod, (Scale, AffineNorm)):
             mod.scale.fill_(1.0)
             if isinstance(mod, AffineNorm):

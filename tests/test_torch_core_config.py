@@ -4,7 +4,9 @@ JAX modules: `core.config`, `core.schedule`, `core.gamma`, `api`'s tables,
 parser.  The port imports none of `regione_tpu`, so these copies must stay
 equal to the originals; every case runs over the five backends of
 `DEFAULT_PARAMS`.  Exact equality throughout: the copies are the same
-code on the same numbers."""
+code on the same numbers.  The port adds one backend of its own
+(`PORT_ONLY`: FLUX.2 [dev], which the JAX package lacks) to its knobs, its
+gamma tables and the CLI's `--backend` choices, and to nothing else."""
 
 import dataclasses
 
@@ -27,11 +29,13 @@ from regione_tpu_torch.models.text_encoders import MockTextEncoder as TMock
 from regione_tpu_torch.utils import metadata as tmeta
 
 BACKENDS = sorted(jconfig.DEFAULT_PARAMS)
+PORT_ONLY = ["flux2-dev"]
 
 
 def test_the_copies_cover_the_same_backends():
-    assert sorted(tconfig.DEFAULT_PARAMS) == BACKENDS
-    assert sorted(tgamma.GAMMA_TABLES) == sorted(jgamma.GAMMA_TABLES)
+    assert sorted(tconfig.DEFAULT_PARAMS) == sorted(BACKENDS + PORT_ONLY)
+    assert sorted(tgamma.GAMMA_TABLES) == \
+        sorted(list(jgamma.GAMMA_TABLES) + PORT_ONLY)
     assert len(BACKENDS) == 5
 
 
@@ -113,7 +117,11 @@ def test_parser_equal_plus_device(backend):
     for dest, ja in jacts.items():
         ta = tacts[dest]
         assert ta.option_strings == ja.option_strings
-        assert ta.choices == ja.choices and ta.nargs == ja.nargs
+        if dest == "backend":
+            assert ta.choices == ja.choices + PORT_ONLY
+        else:
+            assert ta.choices == ja.choices
+        assert ta.nargs == ja.nargs
         assert ta.const == ja.const
         if dest != "device":
             assert ta.default == ja.default, dest

@@ -1,7 +1,8 @@
 """The fused block kernels' wrappers (`regione_tpu_torch.ops.fused`: K7
 AdaLN with the gated residual, K8 qk-RMSNorm + RoPE + head packing, K9
-GELU + concatenation) against the JAX package's expressions, and the
-blocks that call them against the eager blocks they replace.
+GELU + concatenation, K11 the SwiGLU gate + concatenation) against the JAX
+package's expressions, and the blocks that call them against the eager
+blocks they replace.
 
 On the CPU every wrapper takes its plain version.  The same numpy inputs go
 through the JAX expression (`regione_tpu.models.layers`) and the wrapper:
@@ -14,13 +15,17 @@ through the JAX expression (`regione_tpu.models.layers`) and the wrapper:
     sum; K8: the RMSNorm output, then the rotation); only K9's reference is
     `jax.nn.gelu` in fp32 rounded once to bf16, which is what PyTorch's
     `F.gelu` and the kernel compute (a jitted bf16 `jax.nn.gelu` keeps
-    other rounding points).
+    other rounding points), and K11's `jax.nn.silu` in fp32 rounded once,
+    times b in the dtype (PyTorch's `F.silu(a) * b`).
 
 The block-level cases hold `DoubleBlock` / `SingleBlock` (dense, write and
 RAGS mode) and the whole forward bit for bit against the eager blocks the
 port ran before the fused kernels (copied below), packed q / k / v and the
-cache rows `new_kv` included.  The `cuda`-marked test holds each kernel
-against its plain version on the card.
+cache rows `new_kv` included.  The `cuda`-marked tests hold each kernel
+against its plain version on the card (K7 up to FLUX.2's h 6144, K11 at
+its two blocks' shapes), and K7's outputs at h 3072, the width of every
+configuration measured before FLUX.2, bit for bit against digests of the
+kernel before its 6144-wide instantiation was added.
 """
 
 import dataclasses
@@ -84,7 +89,7 @@ def _mods(h, n, seed, dtype):
 @pytest.mark.parametrize("strided_x", [False, True])
 @pytest.mark.parametrize("mode", ["adaln", "residual_adaln",
                                   "gated_residual"])
-@pytest.mark.parametrize("h", [1536, 3072])
+@pytest.mark.parametrize("h", [1536, 3072, 6144])
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_adaln_matches_jax(dtype, h, mode, strided_x):
     """strided_x: x is rows 3.. of a wider stream (the final layer's
@@ -211,6 +216,46 @@ def test_gelu_pack_matches_jax(dtype, with_attn, strided_h):
     _assert_within(got, want.astype(jnp.float32), dtype)
     if with_attn:
         assert torch.equal(got[..., :inner], at)
+
+
+# ---------------------------------------------------------------------------
+# K11
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("strided_h", [False, True])
+@pytest.mark.parametrize("with_attn", [False, True])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_swiglu_pack_matches_jax(dtype, with_attn, strided_h):
+    """strided_h: the MLP part of FLUX.2's linear1 output (row stride 3 *
+    inner + 2 * mlp); the reference is jax.nn.silu in fp32 on the same
+    (rounded) a, rounded once to the dtype, times b in the dtype."""
+    inner, mlp = 256, 768
+    wide_t, wide_j = _pair(_rand((B, S, 3 * inner + 2 * mlp), 8, 2.0),
+                           dtype)
+    if strided_h:
+        ht, hj = wide_t[..., 3 * inner:], wide_j[..., 3 * inner:]
+    else:
+        ht = wide_t[..., 3 * inner:].contiguous()
+        hj = wide_j[..., 3 * inner:]
+    at, aj = _pair(_rand((B, S, inner), 9), dtype)
+    a, b = hj[..., :mlp], hj[..., mlp:]
+    g = jax.nn.silu(a.astype(jnp.float32)).astype(hj.dtype) * b
+    want = jnp.concatenate([aj, g], -1) if with_attn else g
+    got = fused.swiglu_pack(at if with_attn else None, ht)
+    assert got.shape == (B, S, (inner if with_attn else 0) + mlp)
+    _assert_within(got, want.astype(jnp.float32), dtype)
+    if with_attn:
+        assert torch.equal(got[..., :inner], at)
+
+
+def test_swiglu_pack_rounds_as_the_plain_bf16_gate():
+    """bf16: silu(a) rounded once, then the product rounded once, as
+    `F.silu(a) * b` on bf16 tensors computes them."""
+    h = torch.from_numpy(_rand((B, S, 2 * 64), 10, 3.0)).to(torch.bfloat16)
+    a, b = h[..., :64], h[..., 64:]
+    silu = (a.float() / (1.0 + torch.exp(-a.float()))).to(torch.bfloat16)
+    assert torch.equal(fused.swiglu_pack(None, h),
+                       (silu.float() * b.float()).to(torch.bfloat16))
 
 
 # ---------------------------------------------------------------------------
@@ -467,9 +512,10 @@ def test_cpu_calls_launch_nothing():
     fused.gated_residual(x, m, x)
     fused.qk_norm_rope(x, 2, torch.ones(128))
     fused.gelu_pack(x, x)
+    fused.swiglu_pack(x, x)
     assert (fused.adaln.launches, fused.residual_adaln.launches,
             fused.gated_residual.launches, fused.qk_norm_rope.launches,
-            fused.gelu_pack.launches) == (0,) * 5
+            fused.gelu_pack.launches, fused.swiglu_pack.launches) == (0,) * 6
 
 
 _WRAPPERS = {
@@ -479,6 +525,7 @@ _WRAPPERS = {
     "qk_norm_rope": lambda x, m: fused.qk_norm_rope(
         x, 2, torch.ones(128, dtype=torch.bfloat16)),
     "gelu_pack": lambda x, m: fused.gelu_pack(x, x),
+    "swiglu_pack": lambda x, m: fused.swiglu_pack(x, x),
 }
 
 
@@ -496,6 +543,38 @@ def test_a_counter_counts_only_launches(fake_lib, name, rows):
     counts = {k: getattr(fused, k).launches for k in _WRAPPERS}
     assert counts == {k: int(k == name and rows > 0) for k in _WRAPPERS}
     assert len(fake_lib.calls) == counts[name]
+
+
+@pytest.mark.parametrize("h,launches", [(6144, 1), (6152, 0)])
+def test_adaln_takes_h_up_to_6144(fake_lib, h, launches):
+    """K7's widest instantiation holds 24 chunks a lane: 6144 launches,
+    one chunk more raises before the launch."""
+    x = torch.zeros(1, 2, h, dtype=torch.bfloat16)
+    m = torch.zeros(1, 1, h, dtype=torch.bfloat16)
+    if launches:
+        fused.adaln(x, m, m)
+    else:
+        with pytest.raises(ValueError, match="h <= 6144"):
+            fused.adaln(x, m, m)
+    assert len(fake_lib.calls) == launches
+    if launches:
+        (entry, args), = fake_lib.calls
+        assert entry == "regione_adaln_fwd" and args[-2] == h
+
+
+def test_swiglu_pack_passes_its_halves(fake_lib):
+    """K11's launch: h's row stride, inner and mlp (half h's columns)."""
+    wide = torch.zeros(2, 3, 3 * 256 + 2 * 512, dtype=torch.bfloat16)
+    attn = torch.zeros(2, 3, 256, dtype=torch.bfloat16)
+    out = fused.swiglu_pack(attn, wide[..., 3 * 256:])
+    assert out.shape == (2, 3, 256 + 512) and out.is_contiguous()
+    (entry, args), = fake_lib.calls
+    assert entry == "regione_swiglu_pack_fwd"
+    assert list(args[3]) == [3 * 256, 256, 3 * (3 * 256 + 2 * 512),
+                             3 * 256 + 2 * 512]
+    assert args[4:8] == (2, 3, 256, 512)
+    with pytest.raises(ValueError, match="two halves"):
+        fused.swiglu_pack(None, wide[..., :8])
 
 
 # ---------------------------------------------------------------------------
@@ -522,7 +601,8 @@ def _card_within(got, want, label):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,heads,rows", [(1536, 12, 37), (3072, 24, 8),
-                                         (768, 6, 131), (256, 2, 1)])
+                                         (768, 6, 131), (256, 2, 1),
+                                         (6144, 48, 19)])
 def test_fused_kernels_match_plain_on_the_card(cuda_device, h, heads, rows):
     dev, bf = cuda_device, torch.bfloat16
     rng = np.random.default_rng(h + rows)
@@ -570,3 +650,49 @@ def test_fused_kernels_match_plain_on_the_card(cuda_device, h, heads, rows):
                  fused.gelu_pack_reference(attn, mlp_h), "gelu_pack")
     _card_within(fused.gelu_pack(None, mlp_h),
                  fused.gelu_pack_reference(None, mlp_h), "gelu")
+    # K11 from the SwiGLU part of a FLUX.2-style linear1 output (row stride
+    # 3 inner + 4 inner), and the gate alone: the plain gate's bits
+    gated = wide[..., 3 * inner:]
+    before = fused.swiglu_pack.launches
+    for a in (attn, None):
+        got = fused.swiglu_pack(a, gated)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fused.swiglu_pack_reference(a, gated)), \
+            ("swiglu_pack", a is None)
+    assert fused.swiglu_pack.launches == before + 2
+
+
+def _k7_3072_digests(dev) -> dict:
+    """SHA-1 of K7's outputs at FLUX.1's width (B 2, 37 rows of a strided
+    stream, h 3072) in each mode, from seeded inputs."""
+    import hashlib
+    bf = torch.bfloat16
+    rng = np.random.default_rng(3072)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(scale * rng.standard_normal(
+            shape, np.float32)).to(dev, bf)
+    x = t(2, 41, 3072, scale=2.0)[:, 4:]
+    y = t(2, 37, 3072)
+    shift, scale, gate = t(2, 1, 3 * 3072, scale=0.3).chunk(3, dim=-1)
+    outs = {"adaln": (fused.adaln(x, shift, scale),),
+            "residual_adaln": fused.residual_adaln(x, gate, y, shift, scale),
+            "gated_residual": (fused.gated_residual(x, gate, y),)}
+    torch.cuda.synchronize()
+    return {k: hashlib.sha1(b"".join(o.view(torch.int16).cpu().numpy()
+                                     .tobytes() for o in v)).hexdigest()
+            for k, v in outs.items()}
+
+
+# K7 at h 3072 before its 24-chunk instantiation came in: `_k7_3072_digests`
+# over the earlier tree's package on an H100
+K7_3072 = {"adaln": "595fc4e5ad2f218bae6c59e6a9d159fdf7a3057d",
+           "residual_adaln": "a783f4988f971b4af2a0b342dc4d05da94f45c43",
+           "gated_residual": "4586b1a881afd380ec8d6484a833119d1a067864"}
+
+
+@pytest.mark.cuda
+def test_k7_at_3072_is_bit_equal_to_the_earlier_kernel(cuda_device):
+    """The 12-chunk instantiation, which every FLUX.1, Step1X and Qwen
+    configuration runs, gives the bits it gave before h 6144 was added."""
+    assert _k7_3072_digests(cuda_device) == K7_3072

@@ -215,12 +215,12 @@ def test_no_fallback_on_a_device_without_kernels():
             store_quantized(q[:, :, :4], rows, sc, bits)
 
 
-# the eleven kernel wrappers: K1/K5, K2, K2q, K6, K3, K7 (three modes), K8,
-# K9, K10
+# the twelve kernel wrappers: K1/K5, K2, K2q, K6, K3, K7 (three modes), K8,
+# K9, K10, K11
 KERNEL_WRAPPERS = ("attention", "attention_rows2", "attention_rows2_quant",
                    "attention_quant", "fused_partition", "adaln",
                    "residual_adaln", "gated_residual", "qk_norm_rope",
-                   "gelu_pack", "store_quantized")
+                   "gelu_pack", "store_quantized", "swiglu_pack")
 
 
 def _wrapper_call(name, device="cpu", wrong_dtype=False):
@@ -249,6 +249,7 @@ def _wrapper_call(name, device="cpu", wrong_dtype=False):
         "qk_norm_rope": lambda: fused.qk_norm_rope(
             x, 2, torch.ones(128, dtype=bf16, device=device)),
         "gelu_pack": lambda: fused.gelu_pack(x, x),
+        "swiglu_pack": lambda: fused.swiglu_pack(x, x),
         "store_quantized": lambda: store_quantized(q, rows, sc, 8),
     }
     return calls[name]()
@@ -281,11 +282,11 @@ def test_fused_kernels_never_fall_back(monkeypatch, tmp_path, name):
 
 
 def test_fused_entries_are_bound():
-    """The fused kernels' three C entries are bound by the loader and
+    """The fused kernels' four C entries are bound by the loader and
     defined in csrc/fused_block.cu."""
     src = (_build.CSRC / "fused_block.cu").read_text()
     for name in ("regione_adaln_fwd", "regione_qk_norm_rope_fwd",
-                 "regione_gelu_pack_fwd"):
+                 "regione_gelu_pack_fwd", "regione_swiglu_pack_fwd"):
         assert name in _build._SIGNATURES
         assert f'extern "C" int {name}(' in src
 

@@ -474,14 +474,15 @@ def test_every_wrapper_is_counted_and_reset():
     wrappers = [fa.attention, fa.attention_rows2, fa.attention_rows2_quant,
                 fa.attention_quant, pk.fused_partition, fused.adaln,
                 fused.residual_adaln, fused.gated_residual,
-                fused.qk_norm_rope, fused.gelu_pack, quant.store_quantized]
+                fused.qk_norm_rope, fused.gelu_pack, quant.store_quantized,
+                fused.swiglu_pack]
     assert sorted(map(id, telemetry._counted)) == sorted(map(id, wrappers))
     saved = [(w.launches, w.host_ns, w.launch_ns) for w in wrappers]
     try:
         for k, w in enumerate(wrappers):
             w.launches, w.host_ns, w.launch_ns = k, 10 * k, 100 * k
         fa.attention.long_launches = 3
-        assert telemetry.counter_totals() == (55, 550, 5500)
+        assert telemetry.counter_totals() == (66, 660, 6600)
         fa.reset_launches()
         fused.reset_launches()
         assert fa.attention.long_launches == 0
